@@ -1,0 +1,469 @@
+"""Drive the PyTorch/CUDA port's single-split leaf search on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--docs N] [--iters N]
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. build  : compile every CUDA kernel of the path from `quickwit_tpu_torch/
+            csrc/` with nvcc (all sources at once), and print the seconds.
+2. kernels: hold each kernel against its plain torch version on the card, at
+            the slice's shape and at the edge cases; valid winners must be
+            exact.
+3. split  : build a hdfs-logs split with the port's own generator (10M docs,
+            seed 7 by default, the reference's split size).
+4. slice  : run `leaf_search_single_split` on `cuda` for the flagship request
+            (Term severity_text:ERROR, top-10 by BM25, date_histogram 1d,
+            terms severity_text) and a body-term top-10. The kernel launch
+            counters are zeroed just before and read just after; every
+            kernel of the path must have launched. Each response must equal
+            the port's own `device="cpu"` run on the same split.
+5. timing : warm p50/p90 of the whole leaf call, its phases, a profiler
+            window (device busy share, time per kernel; Chrome traces go to
+            chip_traces/), and per kernel: its time by CUDA events (L2
+            flushed before every launch), the same launches replayed from a
+            CUDA graph, the plain version's time, the nearest library call,
+            and its bound.
+
+Its last lines are the card's name and power limit, one JSON object with a
+row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import statistics
+import subprocess
+import sys
+import time
+
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+L2_FLUSH_BYTES = 256 << 20      # > the 50 MB L2
+
+
+def gpu_label() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 1: build
+
+def build_kernels(build_mod) -> dict[str, float]:
+    """Compile every kernel source concurrently; returns seconds each."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sorted(p.stem for p in build_mod.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build_mod.load, names))
+    return {name: build_mod.BUILD_SECONDS[name] for name in names}
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+
+def score_topk_case(torch, num_postings, seed, num_docs, *, all_invalid=False,
+                    equal_scores=False):
+    """Random sorted posting ids with a pad tail (ids past num_docs, tf 0)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = np.sort(rng.choice(num_docs, num_postings,
+                             replace=False)).astype(np.int32)
+    tfs = rng.randint(1, 5, num_postings).astype(np.int32)
+    norms = rng.randint(1, 50, num_docs + 1).astype(np.int32)
+    pad = min(64, num_postings - 1)
+    if pad > 0:
+        tfs[-pad:] = 0
+        ids[-pad:] = num_docs + 7
+    if equal_scores:
+        tfs[tfs > 0] = 1
+        norms[:] = 7
+    if all_invalid:
+        ids[:] = num_docs + 7
+        tfs[:] = 0
+    return (torch.from_numpy(ids), torch.from_numpy(tfs),
+            torch.from_numpy(norms), np.float32(2.17), np.float32(9.3))
+
+
+def compare_winners(torch, got, want, num_valid: int, k: int) -> float:
+    """max |Δ| over valid winners; raises unless values and indices are
+    exact there and both sides are -inf past them."""
+    g_vals, g_idx = (t.cpu() for t in got)
+    w_vals, w_idx = (t.cpu() for t in want)
+    live = min(num_valid, k)
+    if not torch.equal(g_idx[:live], w_idx[:live]):
+        raise AssertionError(f"indices differ: {g_idx[:live].tolist()} vs "
+                             f"{w_idx[:live].tolist()}")
+    if not torch.equal(g_vals[:live], w_vals[:live]):
+        raise AssertionError("values differ")
+    if not (torch.isneginf(g_vals[live:]).all()
+            and torch.isneginf(w_vals[live:]).all()):
+        raise AssertionError("dead lanes are not -inf")
+    if live == 0:
+        return 0.0
+    return float((g_vals[:live].double() - w_vals[:live].double())
+                 .abs().max())
+
+
+def check_score_topk(torch, kernels, dev) -> float:
+    st = kernels
+    num_docs = 10_000_000
+    cases = {
+        "slice_1M_k10": (dict(num_postings=1_000_000, seed=1), 10),
+        "1024_k10": (dict(num_postings=1024, seed=1024), 10),
+        "4096_k5": (dict(num_postings=4096, seed=4096), 5),
+        "5000_k10": (dict(num_postings=5000, seed=5000), 10),
+        "all_invalid": (dict(num_postings=1024, seed=3, all_invalid=True), 3),
+        "equal_scores": (dict(num_postings=100_000, seed=9,
+                              equal_scores=True), 10),
+        "k64": (dict(num_postings=200_000, seed=64), 64),
+        "p1": (dict(num_postings=1, seed=2), 1),
+        "tile_plus_one": (dict(num_postings=4097, seed=5), 10),
+    }
+    worst = 0.0
+    for name, (spec, k) in cases.items():
+        ids, tfs, norms, idf, avg = score_topk_case(torch, num_docs=num_docs,
+                                                    **spec)
+        num_valid = int(((tfs > 0) & (ids < num_docs)).sum())
+        ids, tfs, norms = ids.to(dev), tfs.to(dev), norms.to(dev)
+        got = st.score_topk(ids, tfs, norms, idf, avg, num_docs, k)
+        want = st.score_topk_reference(ids, tfs, norms, idf, avg, num_docs, k)
+        torch.cuda.synchronize()
+        if not ((got[1] >= 0) & (got[1] < ids.shape[0])).all():
+            raise AssertionError(f"{name}: index out of range")
+        err = compare_winners(torch, got, want, num_valid, k)
+        worst = max(worst, err)
+        say(f"kernel score_topk {name}: P={ids.shape[0]} k={k} "
+            f"valid={num_valid} max_abs_err={err} indices_equal=True")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# phases 3-4: split and slice
+
+def hdfs_requests(SearchRequest, Term, body_term):
+    aggs = {"over_time": {"date_histogram": {"field": "timestamp",
+                                             "fixed_interval": "1d"}},
+            "severities": {"terms": {"field": "severity_text", "size": 10}}}
+    return {
+        "flagship": SearchRequest(index_ids=["hdfs-logs"],
+                                  query_ast=Term("severity_text", "ERROR"),
+                                  max_hits=10, aggs=aggs),
+        "body_top10": SearchRequest(index_ids=["hdfs-logs"],
+                                    query_ast=Term("body", body_term(3)),
+                                    max_hits=10),
+    }
+
+
+def response_key(resp):
+    import numpy as np
+    hits = [(h.split_id, h.doc_id, h.sort_value, h.raw_sort_value)
+            for h in resp.partial_hits]
+    aggs = {name: {k: (v.dtype.str, v.tolist()) if isinstance(v, np.ndarray)
+                   else v for k, v in state.items()}
+            for name, state in resp.intermediate_aggs.items()}
+    return resp.num_hits, hits, json.dumps(aggs, sort_keys=True, default=str)
+
+
+# --------------------------------------------------------------------------
+# phase 5: timing
+
+def cuda_ms(torch, fn, iters: int, flush=None) -> float:
+    """Median ms of `fn` by CUDA events, `flush()` run (untimed) before each
+    launch so every launch starts with a cold L2."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def pct(samples, q):
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def graph_ms(torch, fn, iters: int, flush) -> float:
+    """Median ms of `fn` captured once in a CUDA graph and replayed, so the
+    host-side launch cost (Python, ctypes, allocation) drops out: the
+    device time of the launches alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters, flush)
+
+
+def device_profile(torch, fn, calls: int, out_path: str) -> str:
+    """Run `fn` `calls` times under torch.profiler, write the Chrome trace
+    to `out_path`, and summarize it: device busy share of the window (union
+    of kernel, memcpy and memset intervals over the window's wall time) and
+    the device time per kernel name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(out_path)
+    with open(out_path) as fh:
+        return summarize_trace(json.load(fh), calls, wall_us)
+
+
+def summarize_trace(trace: dict, calls: int, wall_us: float) -> str:
+    spans = [(ev["ts"], ev["ts"] + ev["dur"], ev["name"])
+             for ev in trace.get("traceEvents", [])
+             if ev.get("ph") == "X" and ev.get("cat") in (
+                 "kernel", "gpu_memcpy", "gpu_memset")]
+    if not spans:
+        return "device_profile: the trace holds no device events"
+    busy, end = 0.0, float("-inf")
+    for start, stop, _ in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    by_name: dict[str, float] = {}
+    for start, stop, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (f"device_busy_ms_per_call={busy / 1e3 / calls:.4f} "
+            f"wall_ms_per_call={wall_us / 1e3 / calls:.4f} "
+            f"busy_share={busy / wall_us:.4f} device_ops_per_call="
+            f"{len(spans) / calls:.1f} top=" + json.dumps(
+                [[name[:60], round(us / calls, 2)] for name, us in top]))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--docs", type=int, default=10_000_000)
+    parser.add_argument("--seed", type=int, default=7)
+    parser.add_argument("--iters", type=int, default=20)
+    args = parser.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU; nothing to measure", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import numpy as np
+    from quickwit_tpu_torch.common.uri import Uri
+    from quickwit_tpu_torch.index.reader import SplitReader
+    from quickwit_tpu_torch.index.synthetic import (
+        HDFS_MAPPER, body_term, synthetic_hdfs_split)
+    from quickwit_tpu_torch.ops.bm25 import score_postings
+    from quickwit_tpu_torch.ops.kernels import build as build_mod
+    from quickwit_tpu_torch.ops.kernels import score_topk as st
+    from quickwit_tpu_torch.query.ast import Term
+    from quickwit_tpu_torch.search import executor as ex
+    from quickwit_tpu_torch.search.collector import (
+        IncrementalCollector, finalize_aggregations)
+    from quickwit_tpu_torch.search.leaf import (
+        execute_prepared_split, leaf_search_single_split, prepare_plan_only,
+        warmup_device_arrays)
+    from quickwit_tpu_torch.search.models import SearchRequest
+    from quickwit_tpu_torch.storage.ram import RamStorage
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    label = gpu_label()
+    say(f"device: {torch.cuda.get_device_name(0)} count="
+        f"{torch.cuda.device_count()} torch={torch.__version__} "
+        f"cuda={torch.version.cuda}")
+
+    # 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build_kernels(build_mod)
+    say(f"[{label}] build: {json.dumps(built)} total_s="
+        f"{time.perf_counter() - t0:.3f}")
+
+    # 2. kernels vs plain -------------------------------------------------
+    max_abs_err = check_score_topk(torch, st, dev)
+
+    # 3. split ------------------------------------------------------------
+    t0 = time.perf_counter()
+    data = synthetic_hdfs_split(args.docs, seed=args.seed)
+    split_s = time.perf_counter() - t0
+    say(f"split: docs={args.docs} seed={args.seed} bytes={len(data)} "
+        f"build_s={split_s:.3f} host_maxrss_mb="
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f}")
+    storage = RamStorage(Uri.parse("ram:///chip_smoke"))
+    storage.put("hdfs.split", data)
+    del data
+    reader = SplitReader(storage, "hdfs.split")
+    requests = hdfs_requests(SearchRequest, Term, body_term)
+
+    # 4. slice on the card, against the port's CPU run ----------------------
+    st.score_topk.launches = 0
+    responses = {name: leaf_search_single_split(req, HDFS_MAPPER, reader,
+                                                "split-0", device=dev)
+                 for name, req in requests.items()}
+    launches = {"score_topk": st.score_topk.launches}
+    say(f"slice launches: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    for name, req in requests.items():
+        gpu = responses[name]
+        cpu = leaf_search_single_split(req, HDFS_MAPPER, reader, "split-0",
+                                       device="cpu")
+        if response_key(gpu) != response_key(cpu):
+            raise AssertionError(f"{name}: cuda response differs from cpu")
+        if gpu.num_hits <= 0 or len(gpu.partial_hits) != min(
+                req.max_hits, gpu.num_hits):
+            raise AssertionError(f"{name}: unexpected hit count")
+        if not all(np.isfinite(h.sort_value) for h in gpu.partial_hits):
+            raise AssertionError(f"{name}: non-finite sort value")
+        collector = IncrementalCollector(req.max_hits)
+        collector.add_leaf_response(gpu)
+        final = finalize_aggregations(collector.aggregation_states())
+        bucket_sums = {agg: sum(b["doc_count"] for b in out["buckets"])
+                       for agg, out in final.items()}
+        for agg, total in bucket_sums.items():
+            if total != gpu.num_hits:
+                raise AssertionError(f"{name}: {agg} buckets sum to {total}, "
+                                     f"not num_hits {gpu.num_hits}")
+        say(f"slice {name}: num_hits={gpu.num_hits} "
+            f"bucket_doc_count_sums={json.dumps(bucket_sums)} "
+            f"top_doc_ids={[h.doc_id for h in gpu.partial_hits]} "
+            f"equal_to_cpu=True")
+
+    # 5. timing -----------------------------------------------------------
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = []
+    for name, req in requests.items():
+        plan = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
+        arrays, _ = warmup_device_arrays(reader, plan, dev)
+        # the whole leaf call, warm (arrays resident), host clock; the call
+        # ends in the packed readback, which synchronizes
+        walls, phases = [], {"plan": [], "stage": [], "execute": []}
+        for _ in range(args.iters):
+            t0 = time.perf_counter()
+            leaf_search_single_split(req, HDFS_MAPPER, reader, "split-0",
+                                     device=dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            p = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
+            t1 = time.perf_counter()
+            a, staged = warmup_device_arrays(reader, p, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            execute_prepared_split(req, HDFS_MAPPER, reader, "split-0", p, a,
+                                   dev)
+            t3 = time.perf_counter()
+            phases["plan"].append((t1 - t0) * 1e3)
+            phases["stage"].append((t2 - t1) * 1e3)
+            phases["execute"].append((t3 - t2) * 1e3)
+        os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
+        summary = device_profile(
+            torch, lambda: leaf_search_single_split(
+                req, HDFS_MAPPER, reader, "split-0", device=dev), 5,
+            os.path.join(here, "chip_traces", f"trace_{name}.json"))
+        say(f"[{label}] profile {name}: {summary}")
+        staged_cold = sum(arr.nbytes for arr in plan.arrays)
+        say(f"[{label}] leaf {name}: warm_p50_ms={pct(walls, 0.5):.4f} "
+            f"warm_p90_ms={pct(walls, 0.9):.4f} iters={args.iters} "
+            + " ".join(f"{ph}_p50_ms={pct(v, 0.5):.4f}"
+                       for ph, v in phases.items())
+            + f" staged_bytes_cold={staged_cold} staged_bytes_warm={staged}")
+
+        # the kernel at this request's shape
+        if not (ex._posting_space_eligible(plan) and plan.sort.by == "score"
+                and plan.root.scoring):
+            continue
+        root = plan.root
+        ids, tfs = arrays[root.ids_slot], arrays[root.tfs_slot]
+        norms = arrays[root.norm_slot]
+        idf, avg = plan.scalars[root.idf_slot], plan.scalars[root.avg_len_slot]
+        k = min(req.max_hits, ids.shape[0])
+        P = ids.shape[0]
+        before = st.score_topk.launches
+        kernel_ms = cuda_ms(torch, lambda: st.score_topk(
+            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
+        device_ms = graph_ms(torch, lambda: st.score_topk(
+            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
+        st.score_topk.launches = before   # timing launches are not the path's
+        plain_ms = cuda_ms(torch, lambda: st.score_topk_reference(
+            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
+        scores = score_postings(tfs, ids, norms, avg, idf)
+        scores = torch.where((tfs > 0) & (ids < plan.num_docs), scores,
+                             float("-inf"))
+        library_ms = cuda_ms(torch, lambda: torch.topk(scores, k),
+                             args.iters, flush)
+        got = st.score_topk(ids, tfs, norms, idf, avg, plan.num_docs, k)
+        st.score_topk.launches = before
+        want = st.score_topk_reference(ids, tfs, norms, idf, avg,
+                                       plan.num_docs, k)
+        num_valid = int(((tfs > 0) & (ids < plan.num_docs)).sum())
+        err = compare_winners(torch, got, want, num_valid, k)
+        max_abs_err = max(max_abs_err, err)
+        # bytes: ids + tfs + one gathered norm per posting, read once; the
+        # k (f32, i64) winners written once. ops: ~11 f32 ops per posting.
+        nbytes = 12 * P + 12 * k
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = 11 * P / H100_F32_OPS_PER_S * 1e3
+        say(f"[{label}] kernel score_topk @{name}: P={P} k={k} "
+            f"ms={kernel_ms:.5f} graph_replay_ms={device_ms:.5f} "
+            f"plain_ms={plain_ms:.5f} "
+            f"library_ms(torch.topk)={library_ms:.5f} "
+            f"bound_ms={max(bytes_ms, ops_ms):.6f} "
+            f"(bytes={nbytes}, ops_ms={ops_ms:.6f}) max_abs_err={err}")
+        rows.append({
+            "name": "score_topk", "at": name, "P": P, "k": k,
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms})
+    del flush_buf
+
+    main_row = next(r for r in rows if r["at"] == "flagship")
+    kernels = [{
+        "name": "score_topk", "route": "cuda",
+        "source": "quickwit_tpu_torch/csrc/score_topk.cu",
+        "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
+        "launches": launches["score_topk"], "max_abs_err": max_abs_err,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+    }]
+    say(label)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
