@@ -5,24 +5,30 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build  : compile every CUDA kernel of the path from `quickwit_tpu_torch/
-            csrc/` with nvcc (all sources at once), and print the seconds.
+            csrc/` with nvcc (all sources at once), and print the seconds
+            and what ptxas reports per kernel (registers, shared memory,
+            spills).
 2. kernels: hold each kernel against its plain torch version on the card, at
-            the slice's shape and at the edge cases; valid winners must be
-            exact.
+            the slice's shape and at the edge cases (ties across the whole
+            persistent grid, scores rising with the index, misaligned
+            views, 200 calls back to back, two streams at once); valid
+            winners must be exact, and each call must launch once.
 3. split  : build a hdfs-logs split with the port's own generator (10M docs,
             seed 7 by default, the reference's split size).
 4. slice  : run `leaf_search_single_split` on `cuda` for the flagship request
             (Term severity_text:ERROR, top-10 by BM25, date_histogram 1d,
             terms severity_text) and a body-term top-10. The kernel launch
             counters are zeroed just before and read just after; every
-            kernel of the path must have launched. Each response must equal
-            the port's own `device="cpu"` run on the same split.
+            kernel of the path must have launched (score_topk once per
+            query). Each response must equal the port's own `device="cpu"`
+            run on the same split.
 5. timing : warm p50/p90 of the whole leaf call, its phases, a profiler
             window (device busy share, time per kernel; Chrome traces go to
             chip_traces/), and per kernel: its time by CUDA events (L2
             flushed before every launch), the same launches replayed from a
             CUDA graph, the plain version's time, the nearest library call,
-            and its bound.
+            its bound, and the floor set by the 32-byte sectors that its
+            norm gather touches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -70,16 +76,31 @@ def build_kernels(build_mod) -> dict[str, float]:
     return {name: build_mod.BUILD_SECONDS[name] for name in names}
 
 
+def print_ptxas(build_mod, names) -> None:
+    """Each kernel's ptxas lines: entry function, registers, shared memory,
+    stack frame and spills."""
+    for name in names:
+        for line in build_mod.ptxas_report(name).splitlines():
+            if line.strip() and ("ptxas" in line or "spill" in line):
+                say(f"ptxas {name}: {line.strip()}")
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
 def score_topk_case(torch, num_postings, seed, num_docs, *, all_invalid=False,
-                    equal_scores=False):
-    """Random sorted posting ids with a pad tail (ids past num_docs, tf 0)."""
+                    equal_scores=False, ascending=False, invalid_head=0):
+    """Random sorted posting ids with a pad tail (ids past num_docs, tf 0).
+    `ascending`: posting i is doc i with tf 1 and a norm that falls as i
+    rises, so every posting outscores the one before it. `invalid_head`:
+    the first postings have tf 0, so the winners start mid-list."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    ids = np.sort(rng.choice(num_docs, num_postings,
-                             replace=False)).astype(np.int32)
+    if ascending:
+        ids = np.arange(num_postings, dtype=np.int32)
+    else:
+        ids = np.sort(rng.choice(num_docs, num_postings,
+                                 replace=False)).astype(np.int32)
     tfs = rng.randint(1, 5, num_postings).astype(np.int32)
     norms = rng.randint(1, 50, num_docs + 1).astype(np.int32)
     pad = min(64, num_postings - 1)
@@ -89,6 +110,10 @@ def score_topk_case(torch, num_postings, seed, num_docs, *, all_invalid=False,
     if equal_scores:
         tfs[tfs > 0] = 1
         norms[:] = 7
+    if ascending:
+        tfs[tfs > 0] = 1
+        norms[:num_postings] = np.arange(num_postings, 0, -1)
+    tfs[:invalid_head] = 0
     if all_invalid:
         ids[:] = num_docs + 7
         tfs[:] = 0
@@ -116,6 +141,15 @@ def compare_winners(torch, got, want, num_valid: int, k: int) -> float:
                  .abs().max())
 
 
+def misaligned(torch, t, shift: int):
+    """A contiguous view of `t`'s values that starts `shift` int32 elements
+    past a 16-byte boundary."""
+    base = torch.empty(t.shape[0] + 4, dtype=t.dtype, device=t.device)
+    view = base[shift:shift + t.shape[0]]
+    view.copy_(t)
+    return view
+
+
 def check_score_topk(torch, kernels, dev) -> float:
     st = kernels
     num_docs = 10_000_000
@@ -129,7 +163,22 @@ def check_score_topk(torch, kernels, dev) -> float:
                               equal_scores=True), 10),
         "k64": (dict(num_postings=200_000, seed=64), 64),
         "p1": (dict(num_postings=1, seed=2), 1),
+        "p3_k10": (dict(num_postings=3, seed=4), 10),
         "tile_plus_one": (dict(num_postings=4097, seed=5), 10),
+        # ties across every block of the grid; winners start mid-tile
+        "ties_1M_head_k10": (dict(num_postings=1_000_000, seed=11,
+                                  equal_scores=True, invalid_head=300_001),
+                             10),
+        "ties_1M_k64": (dict(num_postings=1_000_000, seed=12,
+                             equal_scores=True), 64),
+        # every posting beats the threshold
+        "ascending_1M_k10": (dict(num_postings=1_000_000, seed=13,
+                                  ascending=True), 10),
+        "ascending_1M_k64": (dict(num_postings=1_000_000, seed=14,
+                                  ascending=True), 64),
+        # ids and tfs views 4 and 12 bytes past a 16-byte boundary
+        "misaligned_1M_k10": (dict(num_postings=1_000_001, seed=15), 10),
+        "misaligned_5001_k33": (dict(num_postings=5001, seed=16), 33),
     }
     worst = 0.0
     for name, (spec, k) in cases.items():
@@ -137,7 +186,15 @@ def check_score_topk(torch, kernels, dev) -> float:
                                                     **spec)
         num_valid = int(((tfs > 0) & (ids < num_docs)).sum())
         ids, tfs, norms = ids.to(dev), tfs.to(dev), norms.to(dev)
+        if name.startswith("misaligned"):
+            ids, tfs = misaligned(torch, ids, 1), misaligned(torch, tfs, 3)
+            if (ids.data_ptr() % 16, tfs.data_ptr() % 16) != (4, 12):
+                raise AssertionError(f"{name}: views are not misaligned")
+        before = st.score_topk.launches
         got = st.score_topk(ids, tfs, norms, idf, avg, num_docs, k)
+        if st.score_topk.launches != before + 1:
+            raise AssertionError(f"{name}: {st.score_topk.launches - before} "
+                                 "launches for one call")
         want = st.score_topk_reference(ids, tfs, norms, idf, avg, num_docs, k)
         torch.cuda.synchronize()
         if not ((got[1] >= 0) & (got[1] < ids.shape[0])).all():
@@ -146,6 +203,44 @@ def check_score_topk(torch, kernels, dev) -> float:
         worst = max(worst, err)
         say(f"kernel score_topk {name}: P={ids.shape[0]} k={k} "
             f"valid={num_valid} max_abs_err={err} indices_equal=True")
+
+    # 200 calls back to back on one stream: the kernel's grid state (ticket,
+    # candidate count, published k-th pair) must come back to 0 after every
+    # launch, or a later call merges too early or filters too much
+    ids, tfs, norms, idf, avg = score_topk_case(torch, 1_000_000, 21,
+                                                num_docs)
+    ids, tfs, norms = ids.to(dev), tfs.to(dev), norms.to(dev)
+    num_valid = int(((tfs > 0) & (ids < num_docs)).sum())
+    want = st.score_topk_reference(ids, tfs, norms, idf, avg, num_docs, 10)
+    outs = [st.score_topk(ids, tfs, norms, idf, avg, num_docs, 10)
+            for _ in range(200)]
+    torch.cuda.synchronize()
+    for got in outs:
+        compare_winners(torch, got, want, num_valid, 10)
+    say("kernel score_topk back_to_back: 200 calls on one stream, all equal "
+        "to the plain version")
+
+    # a second stream at once with the default one: each has its workspace
+    o_ids, o_tfs, o_norms, o_idf, o_avg = score_topk_case(torch, 600_000, 22,
+                                                          num_docs)
+    other = (o_ids.to(dev), o_tfs.to(dev), o_norms.to(dev), o_idf, o_avg)
+    other_valid = int(((o_tfs > 0) & (o_ids < num_docs)).sum())
+    other_want = st.score_topk_reference(*other, num_docs, 64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    pairs = []
+    for _ in range(20):
+        with torch.cuda.stream(side):
+            b = st.score_topk(*other, num_docs, 64)
+        a = st.score_topk(ids, tfs, norms, idf, avg, num_docs, 10)
+        pairs.append((a, b))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        compare_winners(torch, a, want, num_valid, 10)
+        compare_winners(torch, b, other_want, other_valid, 64)
+    say("kernel score_topk two_streams: 20 pairs of calls on the default "
+        "and a second stream, all equal to the plain version")
     return worst
 
 
@@ -213,7 +308,7 @@ def graph_ms(torch, fn, iters: int, flush) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):   # the warmed-up stream
         fn()
     return cuda_ms(torch, graph.replay, iters, flush)
 
@@ -303,6 +398,7 @@ def main(argv=None) -> int:
     built = build_kernels(build_mod)
     say(f"[{label}] build: {json.dumps(built)} total_s="
         f"{time.perf_counter() - t0:.3f}")
+    print_ptxas(build_mod, built)
 
     # 2. kernels vs plain -------------------------------------------------
     max_abs_err = check_score_topk(torch, st, dev)
@@ -330,6 +426,9 @@ def main(argv=None) -> int:
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} never launched on the path")
+    if launches["score_topk"] != len(requests):   # one launch per query
+        raise AssertionError(f"score_topk launched {launches['score_topk']} "
+                             f"times for {len(requests)} queries")
     for name, req in requests.items():
         gpu = responses[name]
         cpu = leaf_search_single_split(req, HDFS_MAPPER, reader, "split-0",
@@ -433,18 +532,29 @@ def main(argv=None) -> int:
         nbytes = 12 * P + 12 * k
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
         ops_ms = 11 * P / H100_F32_OPS_PER_S * 1e3
+        # the floor the bound does not show: each gathered norm moves its
+        # whole 32-byte sector, so count the distinct sectors this run's
+        # valid postings touch, beside the streamed ids and tfs
+        live = (tfs > 0) & (ids < plan.num_docs)
+        sectors = int(torch.unique(ids[live] // 8).numel())
+        sector_bytes = 8 * P + 32 * sectors + 12 * k
+        sector_ms = sector_bytes / H100_BYTES_PER_S * 1e3
         say(f"[{label}] kernel score_topk @{name}: P={P} k={k} "
             f"ms={kernel_ms:.5f} graph_replay_ms={device_ms:.5f} "
             f"plain_ms={plain_ms:.5f} "
             f"library_ms(torch.topk)={library_ms:.5f} "
             f"bound_ms={max(bytes_ms, ops_ms):.6f} "
-            f"(bytes={nbytes}, ops_ms={ops_ms:.6f}) max_abs_err={err}")
+            f"(bytes={nbytes}, ops_ms={ops_ms:.6f}) "
+            f"sector_floor_ms={sector_ms:.6f} (bytes={sector_bytes}, "
+            f"achieved_GB_per_s={sector_bytes / device_ms / 1e6:.1f} at "
+            f"graph replay) max_abs_err={err}")
         rows.append({
-            "name": "score_topk", "at": name, "P": P, "k": k,
-            "ms": kernel_ms, "plain_ms": plain_ms,
+            "at": name, "P": P, "k": k,
+            "ms": kernel_ms, "graph_replay_ms": device_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms})
+            "sector_floor_ms": sector_ms, "library_ms": library_ms})
     del flush_buf
 
     main_row = next(r for r in rows if r["at"] == "flagship")
@@ -453,9 +563,12 @@ def main(argv=None) -> int:
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
         "launches": launches["score_topk"], "max_abs_err": max_abs_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
+        "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "sector_floor_ms": main_row["sector_floor_ms"],
         "library_ms": main_row["library_ms"],
+        "shapes": rows,   # flagship and body_top10, each with all of these
     }]
     say(label)
     say(json.dumps({"kernels": kernels}))

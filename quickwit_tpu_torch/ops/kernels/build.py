@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 Hopper (`sm_90a`) into a shared library under `quickwit_tpu_torch/_build/`
 and loaded with `ctypes`. The library's file name carries a hash of the
 source and flags, so an edited source is rebuilt and a built one is reused.
-Nothing here runs when a module is imported.
+`-Xptxas -v` makes ptxas report each kernel's registers, shared memory and
+spills; that report is kept beside the library (`ptxas_report`). Nothing
+here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()                    # guards the two dicts below
 _NAME_LOCKS: dict[str, threading.Lock] = {}  # one build at a time per source
@@ -53,6 +55,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """What nvcc and ptxas printed when `csrc/<name>.cu` was built: per
+    kernel, its registers, shared memory, stack frame and spills."""
+    return _report_path(library_path(name)).read_text()
+
+
 def build(name: str) -> Path:
     """Compile `csrc/<name>.cu` unless this source is already built."""
     target = library_path(name)
@@ -66,6 +78,7 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    _report_path(target).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, target)   # atomic: concurrent builders never see half
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return target

@@ -35,6 +35,22 @@ CASES = {
     "p1": (1, 1, {}),
     "tile_plus_one": (4097, 10, {}),
     "two_tiles_k64": (8192, 64, {}),
+    # ties across every block of the persistent grid; the first valid
+    # posting lies mid-tile
+    "ties_invalid_head_1M_k10": (1_000_000, 10, {
+        "equal_scores": True, "invalid_head": 300_001,
+        "num_docs": 2_000_000}),
+    "ties_1M_k64": (1_000_000, 64, {"equal_scores": True,
+                                    "num_docs": 2_000_000}),
+    # every posting beats the threshold
+    "ascending_1M_k10": (1_000_000, 10, {"ascending": True,
+                                         "num_docs": 2_000_000}),
+    "ascending_200k_k64": (200_000, 64, {"ascending": True,
+                                         "num_docs": 2_000_000}),
+    # views 4 (ids) and 12 (tfs) bytes past a 16-byte boundary
+    "misaligned_1M_k10": (1_000_001, 10, {"misaligned": True,
+                                          "num_docs": 2_000_000}),
+    "misaligned_5001_k33": (5001, 33, {"misaligned": True}),
 }
 
 
@@ -46,12 +62,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_case(num_postings, seed, all_invalid=False, equal_scores=False):
+def make_case(num_postings, seed, all_invalid=False, equal_scores=False,
+              ascending=False, invalid_head=0, num_docs=NUM_DOCS):
+    """`ascending`: posting i is doc i with tf 1 and a norm that falls as i
+    rises, so every posting outscores the one before it. `invalid_head`:
+    the first postings have tf 0."""
     rng = np.random.RandomState(seed)
-    ids = np.sort(rng.choice(NUM_DOCS, num_postings,
-                             replace=False)).astype(np.int32)
+    if ascending:
+        ids = np.arange(num_postings, dtype=np.int32)
+    else:
+        ids = np.sort(rng.choice(num_docs, num_postings,
+                                 replace=False)).astype(np.int32)
     tfs = rng.randint(1, 5, num_postings).astype(np.int32)
-    norms = rng.randint(1, 50, NUM_DOCS + 1).astype(np.int32)
+    norms = rng.randint(1, 50, num_docs + 1).astype(np.int32)
     pad = min(64, num_postings - 1)
     if pad > 0:
         tfs[-pad:] = 0
@@ -59,33 +82,102 @@ def make_case(num_postings, seed, all_invalid=False, equal_scores=False):
     if equal_scores:
         tfs[tfs > 0] = 1
         norms[:] = 7
+    if ascending:
+        tfs[tfs > 0] = 1
+        norms[:num_postings] = np.arange(num_postings, 0, -1)
+    tfs[:invalid_head] = 0
     if all_invalid:
         ids[:] = 2**30
         tfs[:] = 0
     return ids, tfs, norms
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", list(CASES))
-def test_score_topk_kernel_matches_plain_version(cuda_device, case):
-    num_postings, k, flags = CASES[case]
-    ids, tfs, norms = make_case(num_postings, num_postings, **flags)
-    idf, avg_len = np.float32(2.17), np.float32(9.3)
-    num_valid = int(((tfs > 0) & (ids < NUM_DOCS)).sum())
-    inputs = [torch.from_numpy(a) for a in (ids, tfs, norms)]
-    want_vals, want_idx = score_topk_reference(*inputs, idf, avg_len,
-                                               NUM_DOCS, k)
-    before = score_topk.launches
-    vals, idx = score_topk(*(t.to(cuda_device) for t in inputs), idf,
-                           avg_len, NUM_DOCS, k)
-    torch.cuda.synchronize()
-    assert score_topk.launches == before + 2
-    vals, idx = vals.cpu(), idx.cpu()
+def misaligned(t, shift):
+    """A contiguous copy of `t` that starts `shift` int32 elements past a
+    16-byte boundary."""
+    base = torch.empty(t.shape[0] + 4, dtype=t.dtype, device=t.device)
+    view = base[shift:shift + t.shape[0]]
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4 * shift
+    return view
+
+
+def expect_winners(got, want, num_valid, k, num_postings):
+    vals, idx = (t.cpu() for t in got)
+    want_vals, want_idx = want
     live = min(num_valid, k)
     assert torch.equal(idx[:live], want_idx[:live])
     assert torch.equal(vals[:live], want_vals[:live])
     assert torch.isneginf(vals[live:]).all()
     assert ((idx >= 0) & (idx < num_postings)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_score_topk_kernel_matches_plain_version(cuda_device, case):
+    num_postings, k, flags = CASES[case]
+    flags = dict(flags)
+    shift = flags.pop("misaligned", False)
+    num_docs = flags.get("num_docs", NUM_DOCS)
+    ids, tfs, norms = make_case(num_postings, num_postings, **flags)
+    idf, avg_len = np.float32(2.17), np.float32(9.3)
+    num_valid = int(((tfs > 0) & (ids < num_docs)).sum())
+    inputs = [torch.from_numpy(a) for a in (ids, tfs, norms)]
+    want = score_topk_reference(*inputs, idf, avg_len, num_docs, k)
+    d_ids, d_tfs, d_norms = (t.to(cuda_device) for t in inputs)
+    if shift:
+        d_ids, d_tfs = misaligned(d_ids, 1), misaligned(d_tfs, 3)
+    before = score_topk.launches
+    got = score_topk(d_ids, d_tfs, d_norms, idf, avg_len, num_docs, k)
+    torch.cuda.synchronize()
+    assert score_topk.launches == before + 1
+    expect_winners(got, want, num_valid, k, num_postings)
+
+
+@pytest.mark.gpu
+def test_score_topk_back_to_back_calls_agree(cuda_device):
+    """The kernel's grid state (ticket, candidate count, published k-th
+    pair) comes back to 0 after every launch: 200 calls on one stream, none
+    waiting for the last, all give the same winners."""
+    ids, tfs, norms = make_case(1_000_000, 21, num_docs=2_000_000)
+    idf, avg_len = np.float32(2.17), np.float32(9.3)
+    num_valid = int(((tfs > 0) & (ids < 2_000_000)).sum())
+    inputs = [torch.from_numpy(a) for a in (ids, tfs, norms)]
+    want = score_topk_reference(*inputs, idf, avg_len, 2_000_000, 10)
+    d_inputs = [t.to(cuda_device) for t in inputs]
+    outs = [score_topk(*d_inputs, idf, avg_len, 2_000_000, 10)
+            for _ in range(200)]
+    torch.cuda.synchronize()
+    for got in outs:
+        expect_winners(got, want, num_valid, 10, 1_000_000)
+
+
+@pytest.mark.gpu
+def test_score_topk_on_two_streams_at_once(cuda_device):
+    """Calls on a second stream run beside calls on the default stream;
+    each stream has its own workspace, so neither corrupts the other."""
+    idf, avg_len = np.float32(2.17), np.float32(9.3)
+    cases = []
+    for num_postings, seed, k in ((600_000, 22, 10), (400_000, 23, 64)):
+        ids, tfs, norms = make_case(num_postings, seed, num_docs=2_000_000)
+        inputs = [torch.from_numpy(a) for a in (ids, tfs, norms)]
+        cases.append((
+            [t.to(cuda_device) for t in inputs], k, num_postings,
+            int(((tfs > 0) & (ids < 2_000_000)).sum()),
+            score_topk_reference(*inputs, idf, avg_len, 2_000_000, k)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        with torch.cuda.stream(side):
+            b = score_topk(*cases[1][0], idf, avg_len, 2_000_000, cases[1][1])
+        a = score_topk(*cases[0][0], idf, avg_len, 2_000_000, cases[0][1])
+        outs.append((a, b))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for pair in outs:
+        for got, (_, k, num_postings, num_valid, want) in zip(pair, cases):
+            expect_winners(got, want, num_valid, k, num_postings)
 
 
 @pytest.mark.gpu
