@@ -20,15 +20,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             terms severity_text) and a body-term top-10. The kernel launch
             counters are zeroed just before and read just after; every
             kernel of the path must have launched (score_topk once per
-            query). Each response must equal the port's own `device="cpu"`
-            run on the same split.
-5. timing : warm p50/p90 of the whole leaf call, its phases, a profiler
-            window (device busy share, time per kernel; Chrome traces go to
-            chip_traces/), and per kernel: its time by CUDA events (L2
-            flushed before every launch), the same launches replayed from a
-            CUDA graph, the plain version's time, the nearest library call,
-            its bound, and the floor set by the 32-byte sectors that its
-            norm gather touches.
+            query). Then the doc-space requests, with the counters zeroed
+            again, none of which may launch score_topk:
+            - c2_bool_range_top100 (`bench.py`'s c2: Bool of a scoring MUST
+              term, two SHOULD body terms and a timestamp range FILTER);
+            - c2 sorted by timestamp desc then tenant_id asc, top-100, and
+              its page 2 by `search_after` on the 100th hit, which must
+              equal hits 101-200 of a top-200 run;
+            - body_top10 with the top-k threshold pushed down at its own
+              10th score (posting space, impact block-max), whose hits must
+              equal the run without it;
+            - c2's predicate through `compute_packed_mask`, then a
+              filter-only request sorted by timestamp with that mask as
+              `mask_override`, equal to the request without it.
+            Each response must equal the port's own `device="cpu"` run on
+            the same split, with num_hits > 0 and bucket counts summing to
+            num_hits where there are aggregations.
+5. timing : for flagship, body_top10 and c2: warm p50/p90 of the whole leaf
+            call, its phases (plan, stage, execute), a profiler window
+            (device busy share, ops per call, the top device ops by time;
+            Chrome traces go to chip_traces/); and per kernel: its time by
+            CUDA events (L2 flushed before every launch), the same launches
+            replayed from a CUDA graph, the plain version's time, the
+            nearest library call, its bound, and the floor set by the
+            32-byte sectors that its norm gather touches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -261,14 +276,138 @@ def hdfs_requests(SearchRequest, Term, body_term):
     }
 
 
+def doc_space_requests(SearchRequest, SortField, Bool, Range, RangeBound,
+                       Term, body_term):
+    """`bench.py`'s c2_bool_range_top100, and c2's query under a two-key
+    sort (timestamp desc, tenant_id asc) at top-100 and top-200."""
+    day_us = 86400 * 1_000_000
+    t0_us = 1_600_000_000 * 1_000_000
+    c2 = Bool(
+        must=(Term("severity_text", "ERROR"),),
+        should=(Term("body", body_term(3)), Term("body", body_term(7))),
+        filter=(Range("timestamp", lower=RangeBound(t0_us + day_us, True),
+                      upper=RangeBound(t0_us + 4 * day_us, False)),))
+    two_keys = (SortField("timestamp", "desc"), SortField("tenant_id", "asc"))
+    return {
+        "c2_bool_range_top100": SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=100),
+        "c2_ts_tenant_top100": SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=100,
+            sort_fields=two_keys),
+        "c2_ts_tenant_top200": SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=200,
+            sort_fields=two_keys),
+        "c2_by_timestamp": SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=100,
+            sort_fields=(SortField("timestamp", "desc"),)),
+    }
+
+
+def hit_key(resp):
+    return [(h.split_id, h.doc_id, h.sort_value, h.raw_sort_value,
+             h.sort_value2, h.raw_sort_value2) for h in resp.partial_hits]
+
+
 def response_key(resp):
     import numpy as np
-    hits = [(h.split_id, h.doc_id, h.sort_value, h.raw_sort_value)
-            for h in resp.partial_hits]
+    hits = hit_key(resp)
     aggs = {name: {k: (v.dtype.str, v.tolist()) if isinstance(v, np.ndarray)
                    else v for k, v in state.items()}
             for name, state in resp.intermediate_aggs.items()}
     return resp.num_hits, hits, json.dumps(aggs, sort_keys=True, default=str)
+
+
+def run_split(leaf, mapper, req, reader, dev, threshold=None, mask=None):
+    """One split through the staged entry points, as a leaf service drives
+    it: lower (with a pushed-down threshold or a cached predicate mask),
+    stage, execute. Returns (plan, response)."""
+    extra = {} if mask is None else {"mask_override": mask,
+                                     "mask_key": "mask.c2"}
+    plan = leaf.prepare_plan_only(req, mapper, reader, "split-0",
+                                  sort_value_threshold=threshold, **extra)
+    arrays, _ = leaf.warmup_device_arrays(reader, plan, dev)
+    return plan, leaf.execute_prepared_split(
+        req, mapper, reader, "split-0", plan, arrays, dev)
+
+
+def check_doc_space(leaf, ex, mapper, reqs, body_req, body_resp, aggs,
+                    reader, dev) -> dict:
+    """Phase 4's doc-space requests on the card, each against its CPU run;
+    score_topk must not launch. Returns {name: cuda response}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    out = {}
+
+    def both(name, req, **kw):
+        plan, gpu = run_split(leaf, mapper, req, reader, dev, **kw)
+        _, cpu = run_split(leaf, mapper, req, reader, "cpu", **kw)
+        if response_key(gpu) != response_key(cpu):
+            raise AssertionError(f"{name}: cuda response differs from cpu")
+        if gpu.num_hits <= 0 or len(gpu.partial_hits) != min(
+                req.max_hits, gpu.num_hits):
+            raise AssertionError(f"{name}: unexpected hit count")
+        if not all(h.sort_value > float("-inf") for h in gpu.partial_hits):
+            raise AssertionError(f"{name}: a dead lane surfaced as a hit")
+        for agg, state in gpu.intermediate_aggs.items():
+            if int(state["counts"].sum()) != gpu.num_hits:
+                raise AssertionError(f"{name}: {agg} buckets do not sum to "
+                                     f"num_hits {gpu.num_hits}")
+        say(f"doc-space {name}: num_hits={gpu.num_hits} "
+            f"posting_space={ex._posting_space_eligible(plan)} "
+            f"top_doc_ids={[h.doc_id for h in gpu.partial_hits[:10]]} "
+            f"equal_to_cpu=True")
+        out[name] = gpu
+        return plan, gpu
+
+    _, c2 = both("c2_bool_range_top100", reqs["c2_bool_range_top100"])
+    _, page1 = both("c2_ts_tenant_top100", reqs["c2_ts_tenant_top100"])
+    _, top200 = both("c2_ts_tenant_top200", reqs["c2_ts_tenant_top200"])
+    last = page1.partial_hits[-1]
+    _, page2 = both("c2_ts_tenant_page2", dataclasses.replace(
+        reqs["c2_ts_tenant_top100"], search_after=[
+            last.raw_sort_value, last.raw_sort_value2, "split-0",
+            last.doc_id]))
+    if hit_key(page2) != hit_key(top200)[100:200]:
+        raise AssertionError("page 2 is not hits 101-200 of the top 200")
+    say("doc-space c2_ts_tenant_page2: equal to hits 101-200 of the "
+        "top-200 run")
+
+    threshold = body_resp.partial_hits[9].sort_value
+    plan, cut = both("body_top10_threshold", body_req, threshold=threshold)
+    if plan.threshold_slot < 0 or plan.root.impact_bmax_slot < 0:
+        raise AssertionError("body_top10_threshold: no pushdown in the plan")
+    if hit_key(cut) != hit_key(body_resp) or cut.num_hits != \
+            body_resp.num_hits:
+        raise AssertionError("body_top10_threshold: hits differ from the "
+                             "run without the threshold")
+
+    c2_plan = leaf.prepare_plan_only(reqs["c2_bool_range_top100"], mapper,
+                                     reader, "split-0")
+    host_mask, dev_mask = ex.compute_packed_mask(
+        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, dev)[0], dev)
+    cpu_mask, _ = ex.compute_packed_mask(
+        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, "cpu")[0], "cpu")
+    set_bits = int(np.unpackbits(host_mask).sum())
+    if dev_mask.device.type != torch.device(dev).type or not (
+            host_mask == cpu_mask).all():
+        raise AssertionError("compute_packed_mask: cuda bytes differ from cpu")
+    if set_bits != c2.num_hits:
+        raise AssertionError(f"compute_packed_mask: {set_bits} docs set, "
+                             f"c2 matches {c2.num_hits}")
+    by_ts = dataclasses.replace(reqs["c2_by_timestamp"], aggs=aggs)
+    _, plain = both("c2_by_timestamp", by_ts)
+    plan, masked = both("c2_by_timestamp_mask_override", by_ts,
+                        mask=host_mask)
+    if type(plan.root).__name__ != "PMaskRef" or \
+            response_key(masked) != response_key(plain):
+        raise AssertionError("mask_override: response differs from the "
+                             "request without it")
+    say(f"doc-space mask fill: bytes={host_mask.nbytes} set_bits={set_bits} "
+        f"(= c2 num_hits) equal_to_cpu=True; mask_override response equal "
+        f"to the request without it")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -317,7 +456,7 @@ def device_profile(torch, fn, calls: int, out_path: str) -> str:
     """Run `fn` `calls` times under torch.profiler, write the Chrome trace
     to `out_path`, and summarize it: device busy share of the window (union
     of kernel, memcpy and memset intervals over the window's wall time) and
-    the device time per kernel name, largest first."""
+    the device time per kernel name and per torch op, largest first."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -329,7 +468,13 @@ def device_profile(torch, fn, calls: int, out_path: str) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(out_path)
     with open(out_path) as fh:
-        return summarize_trace(json.load(fh), calls, wall_us)
+        summary = summarize_trace(json.load(fh), calls, wall_us)
+    # the same device time by the torch op that launched it
+    by_op = sorted(((ev.key, getattr(ev, "self_device_time_total", 0.0))
+                    for ev in prof.key_averages()
+                    if ev.key.startswith("aten::")), key=lambda kv: -kv[1])
+    return summary + " top_ops=" + json.dumps(
+        [[name, round(us / calls, 2)] for name, us in by_op[:10] if us > 0])
 
 
 def summarize_trace(trace: dict, calls: int, wall_us: float) -> str:
@@ -376,14 +521,15 @@ def main(argv=None) -> int:
     from quickwit_tpu_torch.ops.bm25 import score_postings
     from quickwit_tpu_torch.ops.kernels import build as build_mod
     from quickwit_tpu_torch.ops.kernels import score_topk as st
-    from quickwit_tpu_torch.query.ast import Term
+    from quickwit_tpu_torch.query.ast import Bool, Range, RangeBound, Term
     from quickwit_tpu_torch.search import executor as ex
+    from quickwit_tpu_torch.search import leaf as leaf_mod
     from quickwit_tpu_torch.search.collector import (
         IncrementalCollector, finalize_aggregations)
     from quickwit_tpu_torch.search.leaf import (
         execute_prepared_split, leaf_search_single_split, prepare_plan_only,
         warmup_device_arrays)
-    from quickwit_tpu_torch.search.models import SearchRequest
+    from quickwit_tpu_torch.search.models import SearchRequest, SortField
     from quickwit_tpu_torch.storage.ram import RamStorage
 
     dev = torch.device("cuda", 0)
@@ -454,6 +600,19 @@ def main(argv=None) -> int:
             f"top_doc_ids={[h.doc_id for h in gpu.partial_hits]} "
             f"equal_to_cpu=True")
 
+    # 4b. the doc-space requests, with the counters zeroed again
+    doc_reqs = doc_space_requests(SearchRequest, SortField, Bool, Range,
+                                  RangeBound, Term, body_term)
+    st.score_topk.launches = 0
+    check_doc_space(leaf_mod, ex, HDFS_MAPPER, doc_reqs,
+                    requests["body_top10"], responses["body_top10"],
+                    requests["flagship"].aggs, reader, dev)
+    doc_launches = {"score_topk": st.score_topk.launches}
+    say(f"doc-space launches: {json.dumps(doc_launches)}")
+    if doc_launches["score_topk"] != 0:
+        raise AssertionError("score_topk launched on a doc-space or "
+                             "threshold request")
+
     # 5. timing -----------------------------------------------------------
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
@@ -461,7 +620,9 @@ def main(argv=None) -> int:
         flush_buf.zero_()
 
     rows = []
-    for name, req in requests.items():
+    timed = dict(requests)
+    timed["c2_bool_range_top100"] = doc_reqs["c2_bool_range_top100"]
+    for name, req in timed.items():
         plan = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
         arrays, _ = warmup_device_arrays(reader, plan, dev)
         # the whole leaf call, warm (arrays resident), host clock; the call

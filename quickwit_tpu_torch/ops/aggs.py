@@ -31,6 +31,11 @@ import torch
 # `_COMPARE_MAX_BUCKETS`).
 _COMPARE_MAX_BUCKETS = 64
 
+# Elements of one compare-and-reduce pass's [rows, num_buckets] predicate:
+# a dense doc-space pass over a 10M-doc split runs in chunks of rows, so
+# the predicate stays at 64 MB.
+_COMPARE_MAX_ELEMENTS = 1 << 26
+
 
 def bucket_counts(idx: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """int32 counts per bucket; `idx` holds an out-of-range sentinel (e.g.
@@ -40,7 +45,13 @@ def bucket_counts(idx: torch.Tensor, num_buckets: int) -> torch.Tensor:
     if num_buckets <= _COMPARE_MAX_BUCKETS:
         buckets = torch.arange(num_buckets, dtype=idx.dtype,
                                device=idx.device)
-        return (idx[:, None] == buckets[None, :]).sum(0, dtype=torch.int32)
+        rows = max(1, _COMPARE_MAX_ELEMENTS // max(num_buckets, 1))
+        counts = (idx[:rows, None] == buckets[None, :]).sum(
+            0, dtype=torch.int32)
+        for start in range(rows, idx.shape[0], rows):
+            counts += (idx[start:start + rows, None] == buckets[None, :]).sum(
+                0, dtype=torch.int32)
+        return counts
     idx = idx.to(torch.int64)
     ok = (idx >= 0) & (idx < num_buckets)
     safe = torch.where(ok, idx, num_buckets)

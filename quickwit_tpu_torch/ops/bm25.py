@@ -76,3 +76,13 @@ def score_postings(tfs: torch.Tensor, doc_ids: torch.Tensor,
     denom = fma_f32(inner, K1, tf)
     weight = (np.float32(boost) * np.float32(idf_value)) * np.float32(K1 + 1.0)
     return (tf * weight) / torch.clamp_min(denom, np.float32(1e-9))
+
+
+def dequantize_block_bounds(bmax: torch.Tensor, scale) -> torch.Tensor:
+    """Per-block f64 score upper bounds from the u8 block maxima of an
+    impact-ordered term (format v3, index/impact.py). `scale` is the
+    persisted per-term dequantization scale with the query boost already
+    folded in at lowering (an f64 host scalar). Soundness
+    (`bmax * scale >= score` for every posting of the block) is the
+    writer's quantization contract."""
+    return bmax.to(torch.float64) * float(scale)

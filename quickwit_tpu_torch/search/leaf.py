@@ -8,13 +8,16 @@ mergeable `LeafSearchResponse`.
 Counterpart of the JAX package's `search/leaf.py`, subset: the staging
 cache is per reader and per device, with no HBM budget and no resident
 column store; execution has no query batcher, no chunked scan, no deadline
-and no tenancy; `search_after` is not supported yet (NotImplementedError).
+and no tenancy. `search_after` markers (numeric and string, one or two
+keys), the top-k threshold pushdown and a cached predicate mask
+(`mask_override`) reach the device program through `prepare_plan_only`.
 """
 
 from __future__ import annotations
 
+import bisect
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -24,7 +27,8 @@ from ..models.doc_mapper import DocMapper, FieldType
 from ..index.reader import SplitReader
 from ..query.aggregations import parse_aggs
 from .executor import execute_plan
-from .models import LeafSearchResponse, PartialHit, SearchRequest
+from .models import (LeafSearchResponse, PartialHit, SearchRequest,
+                     string_sort_of)
 from .plan import BucketAggExec, CompositeAggExec, MetricAggExec, lower_request
 from ..ops.topk import MISSING_VALUE_SENTINEL
 from .hostdecode import host_array, host_float, host_int, host_list
@@ -110,8 +114,16 @@ def warmup_device_arrays(reader: SplitReader, plan, device=None
 
 
 def prepare_plan_only(request: SearchRequest, doc_mapper: DocMapper,
-                      reader: SplitReader, split_id: str):
-    """Storage byte-range IO + plan lowering, without the device transfer."""
+                      reader: SplitReader, split_id: str,
+                      sort_value_threshold: Optional[float] = None,
+                      mask_override=None, mask_key: Optional[str] = None):
+    """Storage byte-range IO + plan lowering, without the device transfer.
+
+    `sort_value_threshold` (internal higher-is-better key) is pushed into
+    the plan as a scalar masking sub-threshold docs before top-k.
+    `mask_override`/`mask_key` forward a packed predicate mask (from
+    `executor.compute_packed_mask`, of either engine) to `lower_request`,
+    which then skips query lowering and every predicate column."""
     agg_specs = parse_aggs(request.aggs) if request.aggs else []
     sort = request.sort_fields[0] if request.sort_fields else None
     sort_field = sort.field if sort else "_score"
@@ -125,7 +137,12 @@ def prepare_plan_only(request: SearchRequest, doc_mapper: DocMapper,
         start_timestamp=request.start_timestamp,
         end_timestamp=request.end_timestamp,
         search_after=search_after_marker(request, split_id, sort_field,
-                                         sort_order, sort2),
+                                         sort_order, sort2,
+                                         doc_mapper=doc_mapper,
+                                         reader=reader),
+        sort_value_threshold=sort_value_threshold,
+        mask_override=mask_override,
+        mask_key=mask_key,
     )
 
 
@@ -250,13 +267,62 @@ def search_after_marker(request: SearchRequest, split_id: str,
                         sort_field: str, sort_order: str, sort2=None,
                         doc_mapper=None, reader=None):
     """(internal_value, internal_value2|None, relation, marker_doc) for this
-    split, or None when the request has no search_after marker. Only the
-    no-marker case is ported; a marker raises NotImplementedError."""
+    split, or None.
+
+    A hit qualifies iff key < m, or key == m and (split, doc) > (m_split,
+    m_doc); the split relation is static per split:
+      split < m_split  → strictly-less ("lt")
+      split == m_split → less-or-doc-tie ("lt_tie")
+      split > m_split  → less-or-equal ("le")
+
+    String markers (text-field sorts): internal keys are SPLIT-LOCAL
+    dictionary ordinals, so the raw term string translates per split via
+    binary search in the column dict; a term absent from this split maps
+    to the half-ordinal between its neighbors (f64 keys compare exactly),
+    with tie relations impossible by construction.
+    """
     if not request.search_after:
         return None
-    raise NotImplementedError(
-        "search_after is not ported yet; it needs the doc-space executor "
-        "slice")
+    sa = list(request.search_after)
+    if sort2 is not None and len(sa) == 4:
+        raw, raw2, m_split, m_doc = sa[0], sa[1], sa[2], host_int(sa[3])
+    else:
+        raw, raw2, m_split, m_doc = sa[0], None, sa[1], host_int(sa[2])
+    if m_split is not None:
+        m_split = str(m_split)
+
+    string_sort = (string_sort_of(request, doc_mapper)
+                   if doc_mapper is not None else None)
+
+    def encode_string(value: str, order: str) -> float:
+        terms = reader.column_dict(sort_field)
+        index = bisect.bisect_left(terms, value)
+        if index < len(terms) and terms[index] == value:
+            ordinal = host_float(index)     # exact: tie relations apply
+        else:
+            ordinal = index - 0.5           # between neighbors: no ties
+        return ordinal if order == "desc" else -ordinal
+
+    def encode(value, field, order):
+        if value is None:
+            return MISSING_VALUE_SENTINEL
+        if string_sort is not None and field == sort_field \
+                and isinstance(value, str):
+            return encode_string(value, order)
+        return (host_float(value) if order == "desc"
+                else -host_float(value))
+
+    internal = encode(raw, sort_field, sort_order)
+    internal2 = (encode(raw2, sort2.field, sort2.order)
+                 if sort2 is not None else None)
+    if m_split is None or split_id < m_split:
+        # a value-only marker is strictly after the value in every split
+        relation = "lt"
+    elif split_id == m_split:
+        relation = "lt_tie"
+    else:
+        relation = "le"
+    return (internal, internal2, relation, m_doc)
 
 
 def _sort_values_are_int(doc_mapper: DocMapper, sort_field: str) -> bool:

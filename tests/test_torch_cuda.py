@@ -1,6 +1,7 @@
 """CUDA-only checks of the port: each kernel against its plain torch version
-on the card, and the leaf search on `cuda` against the same search on the
-CPU. Marked `gpu`; they skip where there is no GPU.
+on the card, the doc-space ops and program on the card against the same
+calls on the CPU (exactly), and the leaf search on `cuda` against the same
+search on the CPU. Marked `gpu`; they skip where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them: `python -m pytest --noconftest -m gpu
@@ -10,15 +11,19 @@ tests/test_torch_cuda.py` (the repository's conftest.py configures JAX).
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from quickwit_tpu_torch.common.uri import Uri
 from quickwit_tpu_torch.index.reader import SplitReader
 from quickwit_tpu_torch.index.synthetic import (
     HDFS_MAPPER, body_term, synthetic_hdfs_split)
+from quickwit_tpu_torch.ops import masks, topk
 from quickwit_tpu_torch.ops.kernels.score_topk import (
     score_topk, score_topk_reference)
-from quickwit_tpu_torch.query.ast import Term
+from quickwit_tpu_torch.query.ast import Bool, Range, RangeBound, Term
+from quickwit_tpu_torch.search import executor
 from quickwit_tpu_torch.search.executor import _widened
+from quickwit_tpu_torch.search.plan import lower_request
 from quickwit_tpu_torch.search.leaf import leaf_search_single_split
 from quickwit_tpu_torch.search.models import SearchRequest
 from quickwit_tpu_torch.storage.ram import RamStorage
@@ -223,3 +228,165 @@ def test_leaf_on_cuda_matches_cpu(cuda_device, num_docs):
                     assert np.array_equal(value, other)
                 else:
                     assert value == other
+
+
+# --- doc space: each op on the card equals the same op on the CPU ------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scoring", [False, True])
+def test_posting_scatter_drops_pad_ids_on_cuda(cuda_device, scoring):
+    """Pad ids (== num_docs_padded) and ids past it drop, with no device
+    assert; a -0.0 value lands as +0.0, as the JAX scatter-add does."""
+    padded = 4096
+    rng = np.random.RandomState(1)
+    ids = np.sort(rng.choice(padded, 900, replace=False)).astype(np.int32)
+    ids = np.concatenate([ids, [padded] * 40, [padded + 77]]).astype(np.int32)
+    values = rng.rand(ids.shape[0]).astype(np.float32)
+    values[::7] = -0.0
+    cpu_ids, cpu_vals = torch.from_numpy(ids), torch.from_numpy(values)
+    if scoring:
+        want = masks.dense_from_postings(cpu_ids, cpu_vals, padded)
+        got = masks.dense_from_postings(cpu_ids.to(cuda_device),
+                                        cpu_vals.to(cuda_device), padded)
+        assert not torch.signbit(got).any()
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    else:
+        want = masks.mask_from_postings(cpu_ids, padded)
+        got = masks.mask_from_postings(cpu_ids.to(cuda_device), padded)
+        assert torch.equal(got.cpu(), want)
+    torch.cuda.synchronize()
+
+
+def _zonemaps(values, present, block=512):
+    nb = values.shape[0] // block
+    v = values.astype(np.int64).reshape(nb, block)
+    p = present.reshape(nb, block).astype(bool)
+    zmin = np.where(p, v, 2**31 - 1).min(axis=1).astype(np.int32)
+    zmax = np.where(p, v, -2**31).max(axis=1).astype(np.int32)
+    return zmin, zmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane", [np.uint8, np.uint16, np.uint32])
+def test_range_mask_over_packed_lanes_on_cuda(cuda_device, lane):
+    """FOR-packed u8/u16/u32 lanes compare as i32 against i32 bounds,
+    gated by i32 zonemaps, as the executor evaluates a packed PRange."""
+    rng = np.random.RandomState(int(np.iinfo(lane).bits))
+    n = 8192
+    top = min(int(np.iinfo(lane).max), 2**31 - 2)
+    values = rng.randint(0, top, n, dtype=np.int64).astype(lane)
+    present = (rng.rand(n) < 0.9).astype(np.uint8)
+    present[2048:2560] = 0
+    zmin, zmax = _zonemaps(values, present)
+    cpu = [torch.from_numpy(a) for a in (values, present, zmin, zmax)]
+    gpu = [t.to(cuda_device) for t in cpu]
+    for lo, hi in ((top // 4, top // 2), (0, 0), (top // 3, top // 3 + 5)):
+        for incl in ((True, True), (False, False)):
+            args = (np.int32(lo), np.int32(hi), *incl, True, True)
+            want = masks.range_mask(_widened(cpu[0]).to(torch.int32), cpu[1],
+                                    *args, cpu[2], cpu[3])
+            got = masks.range_mask(_widened(gpu[0]).to(torch.int32), gpu[1],
+                                   *args, gpu[2], gpu[3])
+            assert torch.equal(got.cpu(), want)
+
+
+def _special_keys(rng, n):
+    keys = rng.choice([-0.0, 0.0, np.nan, -np.nan, -np.inf, np.inf, 1.5,
+                       -1.7976931348623157e308], n)
+    return np.where(rng.rand(n) < 0.5, rng.randint(-3, 3, n) * 0.5, keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 2048, 10 * 1024 + 5, 1_000_000])
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_exact_topk_on_cuda_matches_cpu(cuda_device, n, k):
+    """Ties, NaN of both signs and signed zeros across block edges: the
+    GPU's sorts rank them as the CPU's do (both sort integer keys)."""
+    rng = np.random.RandomState(n + k)
+    key1 = torch.from_numpy(_special_keys(rng, n))
+    key2 = torch.from_numpy(_special_keys(rng, n))
+    want = topk.exact_topk(key1, k)
+    got = topk.exact_topk(key1.to(cuda_device), k)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu().view(torch.int64),
+                       want[0].view(torch.int64))
+    want2 = topk.exact_topk_2key(key1, key2, k)
+    got2 = topk.exact_topk_2key(key1.to(cuda_device), key2.to(cuda_device),
+                                k)
+    assert torch.equal(got2[2].cpu(), want2[2])
+    for g, w in zip(got2[:2], want2[:2]):
+        assert torch.equal(g.cpu().view(torch.int64), w.view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [13, 4096, 1_000_448])
+def test_pack_mask_round_trip_on_cuda(cuda_device, n):
+    bools = np.random.RandomState(n).rand(n) < 0.3
+    mask = torch.from_numpy(bools).to(cuda_device)
+    packed = executor._pack_mask(mask, n)
+    assert packed.device.type == "cuda" and packed.dtype == torch.uint8
+    np.testing.assert_array_equal(packed.cpu().numpy(), np.packbits(bools))
+    assert torch.equal(executor._unpack_mask(packed, n), mask)
+
+
+class _DeviceLog(TorchDispatchMode):
+    """Records every aten op that returns a tensor off the card, except a
+    host scalar being made into a tensor (`lift_fresh` of a 0-dim tensor,
+    which the program then copies to the card: its divisors)."""
+
+    def __init__(self):
+        super().__init__()
+        self.off_card = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.device.type != "cuda"
+                    and not (func is torch.ops.aten.lift_fresh.default
+                             and t.dim() == 0)):
+                self.off_card.add((str(func), tuple(t.shape)))
+        return out
+
+
+@pytest.mark.gpu
+def test_doc_space_program_stays_on_cuda(cuda_device):
+    """A small doc-space program (Bool root, range filter, two-key sort,
+    search_after, threshold, bucket counts) equals its CPU run, and no op
+    of it returns a CPU tensor."""
+    storage = RamStorage(Uri.parse("ram:///cuda-docspace"))
+    storage.put("s.split", synthetic_hdfs_split(50_000, seed=7))
+    reader = SplitReader(storage, "s.split")
+    t0 = 1_600_000_000 * 1_000_000
+    query = Bool(must=(Term("severity_text", "ERROR"),),
+                 should=(Term("body", body_term(3)),),
+                 filter=(Range("timestamp", lower=RangeBound(t0, True),
+                               upper=RangeBound(t0 + 3 * 86400 * 10**6,
+                                                False)),))
+    from quickwit_tpu_torch.query.aggregations import parse_aggs
+    aggs = parse_aggs({"severities": {"terms": {"field": "severity_text"}},
+                       "per_day": {"date_histogram": {
+                           "field": "timestamp", "fixed_interval": "1d"}}})
+    plan = lower_request(query, HDFS_MAPPER, reader, aggs,
+                         sort_field="timestamp", sort_order="desc",
+                         sort2_field="tenant_id", sort2_order="asc",
+                         search_after=(float(t0 + 86400 * 10**6), -3.0,
+                                       "lt", 0),
+                         sort_value_threshold=float(t0))
+    assert not executor._posting_space_eligible(plan)
+    cpu_arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
+    gpu_arrays = [a.to(cuda_device) for a in cpu_arrays]
+    fn = executor._build(plan, 100, cuda_device)
+    log = _DeviceLog()
+    with log:
+        out = fn(gpu_arrays, tuple(plan.scalars), plan.num_docs)
+    assert not log.off_card, log.off_card
+    want = executor.execute_plan(plan, 100, cpu_arrays, device="cpu")
+    got = executor.readback_plan_result(*executor._get_packed_executor(
+        plan, 100, cuda_device)(gpu_arrays, tuple(plan.scalars),
+                                plan.num_docs))
+    assert got["count"] == want["count"] == int(out[4].cpu()) > 0
+    for key in ("sort_values", "sort_values2", "doc_ids", "scores"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for g, w in zip(got["aggs"], want["aggs"]):
+        np.testing.assert_array_equal(g["counts"], w["counts"])

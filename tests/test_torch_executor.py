@@ -142,19 +142,31 @@ def test_packed_readback_roundtrip(readers):
 
 
 def test_unported_plans_raise(readers):
+    """Only the remaining-aggregations slice raises, on posting-space and
+    doc-space plans alike: top-level metrics, range aggregations and
+    bucket metrics. A Bool root with bucket counts runs."""
     _, t_reader = readers
-    bool_plan = t_lower(
-        TQ.Bool(must=(TQ.Term("severity_text", "ERROR"),),
-                should=(TQ.Term("body", body_term(3)),)),
-        T_HDFS_MAPPER, t_reader, [])
-    stats_plan = t_lower(TQ.Term("severity_text", "ERROR"), T_HDFS_MAPPER,
-                         t_reader, t_parse_aggs(
-                             {"t": {"stats": {"field": "tenant_id"}}}))
-    arrays = [torch.from_numpy(np.array(a)) for a in bool_plan.arrays]
-    with pytest.raises(NotImplementedError, match="doc-space"):
-        t_executor.execute_plan(bool_plan, 10, arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="aggregations"):
-        t_executor._build_posting_space(stats_plan, 10)
+    bool_query = TQ.Bool(must=(TQ.Term("severity_text", "ERROR"),),
+                         should=(TQ.Term("body", body_term(3)),))
+    unported = (
+        {"t": {"stats": {"field": "tenant_id"}}},
+        {"r": {"range": {"field": "tenant_id", "ranges": [{"to": 5}]}}},
+        {"s": {"terms": {"field": "severity_text"},
+               "aggs": {"m": {"max": {"field": "tenant_id"}}}}},
+    )
+    for query in (TQ.Term("severity_text", "ERROR"), bool_query):
+        for aggs in unported:
+            plan = t_lower(query, T_HDFS_MAPPER, t_reader,
+                           t_parse_aggs(aggs))
+            arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
+            with pytest.raises(NotImplementedError, match="aggregations"):
+                t_executor.execute_plan(plan, 10, arrays, device="cpu")
+    plan = t_lower(bool_query, T_HDFS_MAPPER, t_reader, t_parse_aggs(AGGS))
+    assert not t_executor._posting_space_eligible(plan)
+    arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
+    res = t_executor.execute_plan(plan, 10, arrays, device="cpu")
+    assert res["count"] > 0
+    assert int(res["aggs"][1]["counts"].sum()) == res["count"]
 
 
 @pytest.mark.parametrize("num_buckets", [1, 4, 64, 65, 700])
