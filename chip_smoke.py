@@ -36,14 +36,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             Each response must equal the port's own `device="cpu"` run on
             the same split, with num_hits > 0 and bucket counts summing to
             num_hits where there are aggregations.
-5. timing : for flagship, body_top10 and c2: warm p50/p90 of the whole leaf
-            call, its phases (plan, stage, execute), a profiler window
-            (device busy share, ops per call, the top device ops by time;
-            Chrome traces go to chip_traces/); and per kernel: its time by
-            CUDA events (L2 flushed before every launch), the same launches
-            replayed from a CUDA graph, the plain version's time, the
-            nearest library call, its bound, and the floor set by the
-            32-byte sectors that its norm gather touches.
+5. aggs   : the aggregation requests, with the counters zeroed again: an
+            otel-traces split from the port's generator (10M docs, the
+            same seed) and a 20,000-doc split written by the port's
+            SplitWriter (multivalued raw tags, a FOR-packed u64) beside the
+            hdfs split. First the aggregation reductions over 10M rows
+            (bucket sums past the compare limit, minima, maxima, sketches,
+            HLL registers), twice on the card, against their CPU run. Then
+            each request twice on `cuda` and once on the CPU:
+            - c5_otel_percentiles_1split: MatchAll, percentiles of
+              span_duration_micros (BASELINE config 5 on one split);
+            - otel_latency_by_service: terms(service_name) with
+              percentiles, extended_stats and cardinality of the duration,
+              and date_histogram 1m with its avg and max;
+            - flagship_bucket_metrics: the flagship's Term top-10 with
+              stats and percentiles of tenant_id per day and max(timestamp)
+              per severity; it must launch score_topk once per call;
+            - c2_aggs: c2's Bool root, top-100, with cardinality(tenant_id),
+              three overlapping timestamp ranges (sum and cardinality of
+              tenant_id in each) and a composite (severity_text, day) of
+              20 with avg(tenant_id) and a terms(tenant_id) child, then its
+              page 2 through `after`;
+            - mv_tags: a Range on the packed u64 with terms(tags), and the
+              stats and cardinality of the packed u64.
+            The two cuda calls must give the same bytes; the cuda response
+            must equal the CPU's (f64 sums to rtol 1e-12, everything else
+            exactly).
+6. timing : for flagship, body_top10, c2 and the three timed aggregation
+            requests: warm p50/p90 of the whole leaf call, its phases (plan,
+            stage, execute), a profiler window (device busy share, ops per
+            call, the top device ops by time; Chrome traces go to
+            chip_traces/); and per kernel: its time by CUDA events (L2
+            flushed before every launch), the same launches replayed from a
+            CUDA graph, the plain version's time, the nearest library call,
+            its bound, and the floor set by the 32-byte sectors that its
+            norm gather touches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -411,7 +438,296 @@ def check_doc_space(leaf, ex, mapper, reqs, body_req, body_resp, aggs,
 
 
 # --------------------------------------------------------------------------
-# phase 5: timing
+# phase 5: aggregations
+
+SUM_KEYS = ("sum", "sum_sq")
+
+
+def assert_aggs_close(want, got, path="aggs") -> None:
+    """Aggregation states of two runs: f64 sums to rtol 1e-12 (the CPU and
+    the card reduce in other orders), everything else exactly (floats bit
+    for bit)."""
+    import numpy as np
+    key = path.rsplit(".", 1)[-1]
+    if isinstance(want, dict):
+        if want.keys() != got.keys():
+            raise AssertionError(f"{path}: keys differ")
+        for k in want:
+            assert_aggs_close(want[k], got[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(want) != len(got):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (w, g) in enumerate(zip(want, got)):
+            assert_aggs_close(w, g, f"{path}[{i}]")
+    elif isinstance(want, (np.ndarray, float)):
+        w, g = np.asarray(want), np.asarray(got)
+        if w.dtype != g.dtype or w.shape != g.shape:
+            raise AssertionError(f"{path}: dtype or shape differs")
+        close = np.zeros(w.shape, dtype=bool)
+        if key in SUM_KEYS:
+            close[...] = True
+        elif key == "state":          # [count, sum, sum_sq, min, max]
+            close[1:3] = True
+        if w.dtype.kind == "f":
+            bits_equal = w.view(np.int64) == g.view(np.int64)
+            near = np.isclose(g, w, rtol=1e-12, atol=0, equal_nan=True)
+            ok = np.where(close, near, bits_equal)
+        else:
+            ok = w == g
+        if not np.all(ok):
+            raise AssertionError(f"{path}: {w} vs {g}")
+    elif want != got:
+        raise AssertionError(f"{path}: {want!r} vs {got!r}")
+
+
+def agg_requests(SearchRequest, Term, MatchAll, Bool, Range, RangeBound,
+                 body_term) -> dict:
+    """name -> (split, request, timed)."""
+    day_us = 86400 * 1_000_000
+    t0_us = 1_600_000_000 * 1_000_000
+    duration = "span_duration_micros"
+    pctl = {"percentiles": {"field": duration, "percents": [50, 95, 99]}}
+    c2 = Bool(
+        must=(Term("severity_text", "ERROR"),),
+        should=(Term("body", body_term(3)), Term("body", body_term(7))),
+        filter=(Range("timestamp", lower=RangeBound(t0_us + day_us, True),
+                      upper=RangeBound(t0_us + 4 * day_us, False)),))
+    return {
+        "c5_otel_percentiles_1split": ("otel", SearchRequest(
+            index_ids=["otel-traces"], query_ast=MatchAll(), max_hits=0,
+            aggs={"latency": pctl}), True),
+        "otel_latency_by_service": ("otel", SearchRequest(
+            index_ids=["otel-traces"], query_ast=MatchAll(), max_hits=0,
+            aggs={"by_service": {
+                "terms": {"field": "service_name", "size": 10},
+                "aggs": {"latency": pctl,
+                         "stats": {"extended_stats": {"field": duration}},
+                         "distinct": {"cardinality": {"field": duration}}}},
+                  "per_minute": {
+                "date_histogram": {"field": "span_start_timestamp",
+                                   "fixed_interval": "1m"},
+                "aggs": {"avg": {"avg": {"field": duration}},
+                         "max": {"max": {"field": duration}}}}}), True),
+        "flagship_bucket_metrics": ("hdfs", SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=Term("severity_text", "ERROR"),
+            max_hits=10, aggs={
+                "over_time": {
+                    "date_histogram": {"field": "timestamp",
+                                       "fixed_interval": "1d"},
+                    "aggs": {"tenant_stats": {"stats": {"field": "tenant_id"}},
+                             "tenant_pct": {"percentiles": {
+                                 "field": "tenant_id"}}}},
+                "severities": {
+                    "terms": {"field": "severity_text", "size": 10},
+                    "aggs": {"last": {"max": {"field": "timestamp"}}}}}),
+            True),
+        "c2_aggs": ("hdfs", SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=100, aggs={
+                "tenants": {"cardinality": {"field": "tenant_id"}},
+                "windows": {
+                    "range": {"field": "timestamp", "ranges": [
+                        {"to": t0_us + 3 * day_us},
+                        {"from": t0_us + 2 * day_us},
+                        {"from": t0_us + day_us, "to": t0_us + 5 * day_us}]},
+                    "aggs": {"tenant_sum": {"sum": {"field": "tenant_id"}},
+                             "tenants": {"cardinality": {
+                                 "field": "tenant_id"}}}},
+                "pages": {
+                    "composite": {"size": 20, "sources": [
+                        {"sev": {"terms": {"field": "severity_text"}}},
+                        {"day": {"date_histogram": {
+                            "field": "timestamp",
+                            "fixed_interval": "1d"}}}]},
+                    "aggs": {"tenant_avg": {"avg": {"field": "tenant_id"}},
+                             "by_tenant": {"terms": {
+                                 "field": "tenant_id"}}}}}), False),
+        "mv_tags": ("mv", SearchRequest(
+            index_ids=["mv-tags"], query_ast=Range(
+                "bytes", lower=RangeBound(2**40 + 200_000, True),
+                upper=RangeBound(2**40 + 1_400_000, False)),
+            max_hits=0, aggs={
+                "tags": {"terms": {"field": "tags", "size": 50}},
+                # the packed u64 rebased on the card: stats, its hash
+                "bytes": {"stats": {"field": "bytes"}},
+                "distinct_bytes": {"cardinality": {"field": "bytes"}}}),
+            False),
+    }
+
+
+def mv_tags_split(SplitWriter, DocMapper, FieldMapping, FieldType, seed):
+    """20,000 docs written by the port's SplitWriter: 1-4 tags per doc from
+    a vocabulary of 50 (a multivalued raw field) and a u64 that packs into
+    u32 lanes."""
+    import numpy as np
+    mapper = DocMapper(field_mappings=[
+        FieldMapping("ts", FieldType.DATETIME, fast=True, indexed=False,
+                     input_formats=("unix_timestamp",)),
+        FieldMapping("tags", FieldType.TEXT, tokenizer="raw", fast=True),
+        FieldMapping("bytes", FieldType.U64, fast=True, indexed=False)],
+        timestamp_field="ts")
+    rng = np.random.RandomState(seed)
+    vocab = [f"tag{i:02d}" for i in range(50)]
+    writer = SplitWriter(mapper)
+    for i in range(20_000):
+        writer.add_json_doc({
+            "ts": 1_600_000_000 + i * 30,
+            "tags": list(rng.choice(vocab, rng.randint(1, 5))),
+            "bytes": int(2**40 + rng.randint(0, 400_000) * 4)})
+    return mapper, writer.finish()
+
+
+def check_agg_ops(torch, aggs, dev, seed, n) -> str:
+    """The aggregation reductions over `n` rows (the split's doc count) on
+    the card, twice, against their CPU run: bucket sums past the compare
+    limit (the sort and segment path), minima and maxima over signed zeros
+    and NaN, per-bucket sketches and HLL registers. Returns a summary
+    line."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    idx = torch.from_numpy(rng.randint(0, 702, n).astype(np.int32))
+    values = torch.from_numpy(np.exp(rng.normal(9.0, 1.5, n)))
+    values[::1000] = -0.0
+    values[1::1000] = 0.0
+    values[7] = float("nan")
+    hashes = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, n,
+                                          dtype=np.int64))
+    valid = torch.from_numpy(rng.rand(n) < 0.9)
+    cases = {
+        "bucket_sum_700": lambda i, v, h, ok: aggs.bucket_sum(i, v, 700),
+        "bucket_sum_64": lambda i, v, h, ok: aggs.bucket_sum(i, v, 64),
+        "bucket_min_700": lambda i, v, h, ok: aggs.bucket_min(i, v, 700),
+        "bucket_max_64": lambda i, v, h, ok: aggs.bucket_max(i, v, 64),
+        "bucket_sketch_60": lambda i, v, h, ok:
+            aggs.bucket_percentile_sketch(i, v, 60),
+        "bucket_hll_700": lambda i, v, h, ok:
+            aggs.bucket_hll_registers(i, h, ok, 700),
+    }
+    cpu = (idx, values, hashes, valid)
+    gpu = tuple(t.to(dev) for t in cpu)
+    worst = 0.0
+    for name, fn in cases.items():
+        want = fn(*cpu).numpy()
+        first, second = fn(*gpu).cpu().numpy(), fn(*gpu).cpu().numpy()
+        bits = (lambda a: a.view(np.int64) if a.dtype == np.float64 else a)
+        if not np.array_equal(bits(first), bits(second)):
+            raise AssertionError(f"{name}: two calls on the card differ")
+        if name.startswith("bucket_sum"):
+            if not np.allclose(first, want, rtol=1e-12, atol=0,
+                               equal_nan=True):
+                raise AssertionError(f"{name}: cuda differs from cpu")
+            worst = max(worst, float(np.nanmax(np.abs(first - want)
+                                               / np.abs(want))))
+        elif not np.array_equal(bits(first), bits(want)):
+            raise AssertionError(f"{name}: cuda differs from cpu")
+    return (f"aggs ops at {n} rows: {sorted(cases)} equal to cpu (sums "
+            f"max rel err {worst}), two cuda calls byte-equal")
+
+
+def check_aggregations(leaf, st, collector_mod, reqs, splits, dev) -> None:
+    """Phase 5's requests: twice on the card, once on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    out = {}
+
+    def finalize(req, resp):
+        collector = collector_mod.IncrementalCollector(req.max_hits)
+        collector.add_leaf_response(resp)
+        return collector_mod.finalize_aggregations(
+            collector.aggregation_states())
+
+    def three(name, split, req):
+        mapper, reader = splits[split]
+        before = st.score_topk.launches
+        _, gpu = run_split(leaf, mapper, req, reader, dev)
+        _, again = run_split(leaf, mapper, req, reader, dev)
+        launched = st.score_topk.launches - before
+        _, cpu = run_split(leaf, mapper, req, reader, "cpu")
+        if response_key(gpu) != response_key(again):
+            raise AssertionError(f"{name}: two cuda calls differ")
+        if gpu.num_hits != cpu.num_hits or hit_key(gpu) != hit_key(cpu):
+            raise AssertionError(f"{name}: cuda hits differ from cpu")
+        assert_aggs_close(cpu.intermediate_aggs, gpu.intermediate_aggs,
+                          name)
+        if gpu.num_hits <= 0 or len(gpu.partial_hits) != min(
+                req.max_hits, gpu.num_hits):
+            raise AssertionError(f"{name}: unexpected hit count")
+        final = finalize(req, gpu)
+        say(f"aggs {name}: num_hits={gpu.num_hits} score_topk_launches="
+            f"{launched} for 2 calls, two cuda calls byte-equal, "
+            f"equal_to_cpu=True")
+        out[name] = gpu
+        return gpu, final, launched
+
+    _, c5, _ = three("c5_otel_percentiles_1split",
+                     *reqs["c5_otel_percentiles_1split"][:2])
+    values = [v for v in c5["latency"]["values"].values()]
+    if not (all(np.isfinite(values)) and values == sorted(values)):
+        raise AssertionError(f"c5: percentiles {values}")
+    say(f"aggs c5 percentiles (p50, p95, p99 micros): {values}")
+
+    _, otel, _ = three("otel_latency_by_service",
+                       *reqs["otel_latency_by_service"][:2])
+    services = otel["by_service"]["buckets"]
+    if sum(b["doc_count"] for b in services) != out[
+            "otel_latency_by_service"].num_hits:
+        raise AssertionError("otel: service buckets do not sum to num_hits")
+    say("aggs otel by service: " + json.dumps(
+        [[b["key"], b["doc_count"], b["distinct"]["value"]]
+         for b in services]))
+
+    _, flag, launched = three("flagship_bucket_metrics",
+                              *reqs["flagship_bucket_metrics"][:2])
+    if launched != 2:
+        raise AssertionError(f"flagship_bucket_metrics launched score_topk "
+                             f"{launched} times in 2 calls")
+    days = flag["over_time"]["buckets"]
+    if sum(b["doc_count"] for b in days) != out[
+            "flagship_bucket_metrics"].num_hits:
+        raise AssertionError("flagship_bucket_metrics: days do not sum")
+
+    split, c2_req, _ = reqs["c2_aggs"]
+    _, c2, _ = three("c2_aggs", split, c2_req)
+    pages = c2["pages"]
+    keys1 = [tuple(b["key"].values()) for b in pages["buckets"]]
+
+    def after(key):
+        composite = dict(c2_req.aggs["pages"]["composite"],
+                         after=dict(zip(pages["after_key"], key)))
+        return dataclasses.replace(c2_req, aggs={
+            "pages": dict(c2_req.aggs["pages"], composite=composite)})
+
+    # page 2 after the last key, and a page resumed after the first key,
+    # which must be page 1 less its first bucket
+    _, page2, _ = three("c2_aggs_page2", split, after(keys1[-1]))
+    _, resumed, _ = three("c2_aggs_after_first", split, after(keys1[0]))
+    keys2 = [tuple(b["key"].values()) for b in page2["pages"]["buckets"]]
+    if (keys2 and keys2[0] <= keys1[-1]) or (len(keys1) < 20 and keys2):
+        raise AssertionError("c2_aggs: page 2 does not follow page 1")
+    if [(tuple(b["key"].values()), b["doc_count"])
+            for b in resumed["pages"]["buckets"]] != [
+            (k, b["doc_count"]) for k, b in zip(keys1, pages["buckets"])][1:]:
+        raise AssertionError("c2_aggs: the page after the first key is not "
+                             "page 1 less its first bucket")
+    say(f"aggs c2 composite: page 1 {len(keys1)} buckets {keys1}, page 2 "
+        f"{len(keys2)} buckets; the page after the first key is page 1 "
+        f"less its first bucket")
+
+    split, mv_req, _ = reqs["mv_tags"]
+    plan, _ = run_split(leaf, splits[split][0], mv_req, splits[split][1], dev)
+    lanes = plan.arrays[plan.root.values_slot].dtype
+    if not (lanes == np.uint32 and plan.rebase
+            and any(a.kind == "terms_mv" for a in plan.aggs)):
+        raise AssertionError("mv_tags: no packed lanes, no rebase or no "
+                             "pair arrays")
+    _, mv, _ = three("mv_tags", split, mv_req)
+    if sum(b["doc_count"] for b in mv["tags"]["buckets"]) <= out[
+            "mv_tags"].num_hits:
+        raise AssertionError("mv_tags: a multivalued doc counted once")
+
+
+# --------------------------------------------------------------------------
+# phase 6: timing
 
 def cuda_ms(torch, fn, iters: int, flush=None) -> float:
     """Median ms of `fn` by CUDA events, `flush()` run (untimed) before each
@@ -516,12 +832,19 @@ def main(argv=None) -> int:
     import numpy as np
     from quickwit_tpu_torch.common.uri import Uri
     from quickwit_tpu_torch.index.reader import SplitReader
+    from quickwit_tpu_torch.index import SplitWriter
     from quickwit_tpu_torch.index.synthetic import (
-        HDFS_MAPPER, body_term, synthetic_hdfs_split)
+        HDFS_MAPPER, OTEL_BENCH_MAPPER, body_term, synthetic_hdfs_split,
+        synthetic_otel_split)
+    from quickwit_tpu_torch.models.doc_mapper import (
+        DocMapper, FieldMapping, FieldType)
+    from quickwit_tpu_torch.ops import aggs as agg_ops
     from quickwit_tpu_torch.ops.bm25 import score_postings
     from quickwit_tpu_torch.ops.kernels import build as build_mod
     from quickwit_tpu_torch.ops.kernels import score_topk as st
-    from quickwit_tpu_torch.query.ast import Bool, Range, RangeBound, Term
+    from quickwit_tpu_torch.query.ast import (
+        Bool, MatchAll, Range, RangeBound, Term)
+    from quickwit_tpu_torch.search import collector as collector_mod
     from quickwit_tpu_torch.search import executor as ex
     from quickwit_tpu_torch.search import leaf as leaf_mod
     from quickwit_tpu_torch.search.collector import (
@@ -613,34 +936,68 @@ def main(argv=None) -> int:
         raise AssertionError("score_topk launched on a doc-space or "
                              "threshold request")
 
-    # 5. timing -----------------------------------------------------------
+    # 5. aggregations, with the counters zeroed again ----------------------
+    t0 = time.perf_counter()
+    otel_data = synthetic_otel_split(args.docs, seed=args.seed)
+    otel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mv_mapper, mv_data = mv_tags_split(SplitWriter, DocMapper, FieldMapping,
+                                       FieldType, args.seed)
+    say(f"aggs splits: otel docs={args.docs} seed={args.seed} "
+        f"bytes={len(otel_data)} build_s={otel_s:.3f}; mv_tags docs=20000 "
+        f"bytes={len(mv_data)} build_s={time.perf_counter() - t0:.3f}")
+    storage.put("otel.split", otel_data)
+    storage.put("mv.split", mv_data)
+    del otel_data, mv_data
+    splits = {"hdfs": (HDFS_MAPPER, reader),
+              "otel": (OTEL_BENCH_MAPPER, SplitReader(storage, "otel.split")),
+              "mv": (mv_mapper, SplitReader(storage, "mv.split"))}
+    say(check_agg_ops(torch, agg_ops, dev, args.seed, args.docs))
+    agg_reqs = agg_requests(SearchRequest, Term, MatchAll, Bool, Range,
+                            RangeBound, body_term)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st.score_topk.launches = 0
+    check_aggregations(leaf_mod, st, collector_mod, agg_reqs, splits, dev)
+    agg_launches = {"score_topk": st.score_topk.launches}
+    say(f"aggs launches: {json.dumps(agg_launches)} peak_device_mb="
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}")
+    if agg_launches["score_topk"] != 2:   # flagship_bucket_metrics, twice
+        raise AssertionError("score_topk did not launch once per "
+                             "flagship_bucket_metrics call")
+
+    # 6. timing -----------------------------------------------------------
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     def flush():
         flush_buf.zero_()
 
     rows = []
-    timed = dict(requests)
-    timed["c2_bool_range_top100"] = doc_reqs["c2_bool_range_top100"]
-    for name, req in timed.items():
-        plan = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
-        arrays, _ = warmup_device_arrays(reader, plan, dev)
+    timed = {name: (HDFS_MAPPER, reader, req)
+             for name, req in requests.items()}
+    timed["c2_bool_range_top100"] = (HDFS_MAPPER, reader,
+                                     doc_reqs["c2_bool_range_top100"])
+    for name, (split, req, is_timed) in agg_reqs.items():
+        if is_timed:
+            timed[name] = (*splits[split], req)
+    for name, (mapper, split_reader, req) in timed.items():
+        plan = prepare_plan_only(req, mapper, split_reader, "split-0")
+        arrays, _ = warmup_device_arrays(split_reader, plan, dev)
         # the whole leaf call, warm (arrays resident), host clock; the call
         # ends in the packed readback, which synchronizes
         walls, phases = [], {"plan": [], "stage": [], "execute": []}
         for _ in range(args.iters):
             t0 = time.perf_counter()
-            leaf_search_single_split(req, HDFS_MAPPER, reader, "split-0",
+            leaf_search_single_split(req, mapper, split_reader, "split-0",
                                      device=dev)
             walls.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-            p = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
+            p = prepare_plan_only(req, mapper, split_reader, "split-0")
             t1 = time.perf_counter()
-            a, staged = warmup_device_arrays(reader, p, dev)
+            a, staged = warmup_device_arrays(split_reader, p, dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            execute_prepared_split(req, HDFS_MAPPER, reader, "split-0", p, a,
-                                   dev)
+            execute_prepared_split(req, mapper, split_reader, "split-0", p,
+                                   a, dev)
             t3 = time.perf_counter()
             phases["plan"].append((t1 - t0) * 1e3)
             phases["stage"].append((t2 - t1) * 1e3)
@@ -648,7 +1005,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
         summary = device_profile(
             torch, lambda: leaf_search_single_split(
-                req, HDFS_MAPPER, reader, "split-0", device=dev), 5,
+                req, mapper, split_reader, "split-0", device=dev), 5,
             os.path.join(here, "chip_traces", f"trace_{name}.json"))
         say(f"[{label}] profile {name}: {summary}")
         staged_cold = sum(arr.nbytes for arr in plan.arrays)
@@ -723,13 +1080,16 @@ def main(argv=None) -> int:
         "name": "score_topk", "route": "cuda",
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
-        "launches": launches["score_topk"], "max_abs_err": max_abs_err,
+        # the slice's flagship and body_top10 calls, and the two
+        # flagship_bucket_metrics calls of the aggregation phase
+        "launches": launches["score_topk"] + agg_launches["score_topk"],
+        "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "sector_floor_ms": main_row["sector_floor_ms"],
         "library_ms": main_row["library_ms"],
-        "shapes": rows,   # flagship and body_top10, each with all of these
+        "shapes": rows,   # each posting-space request, with all of these
     }]
     say(label)
     say(json.dumps({"kernels": kernels}))

@@ -6,9 +6,11 @@ bypassing the per-document Python writer loop so multi-million-doc splits
 materialize in seconds.
 
 Subset of the JAX package's `index/synthetic.py`: the hdfs-logs generator
-only (`synthetic_hdfs_split`, `HDFS_MAPPER`, `body_term`). For the same
-`(num_docs, seed)` it writes byte-identical split bytes, so both engines
-can be held against each other on one split.
+(`synthetic_hdfs_split`, `HDFS_MAPPER`, `body_term`) and the otel-traces
+generator of BASELINE config 5 (`synthetic_otel_split`,
+`OTEL_BENCH_MAPPER`). For the same `(num_docs, seed)` each writes
+byte-identical split bytes, so both engines can be held against each other
+on one split.
 """
 
 from __future__ import annotations
@@ -250,6 +252,70 @@ def _write_body(builder, fields, rng, num_docs, num_docs_padded):
     }
     if impact_meta is not None:
         fields["body"]["impact"] = impact_meta
+
+
+OTEL_BENCH_MAPPER = DocMapper(
+    field_mappings=[
+        FieldMapping("span_start_timestamp", FieldType.DATETIME, fast=True,
+                     input_formats=("unix_timestamp",)),
+        FieldMapping("span_duration_micros", FieldType.I64, fast=True),
+        FieldMapping("service_name", FieldType.TEXT, tokenizer="raw",
+                     fast=True),
+    ],
+    timestamp_field="span_start_timestamp",
+    default_search_fields=(),
+)
+
+_OTEL_SERVICES = ["api", "auth", "billing", "cart", "search", "web"]
+
+
+def synthetic_otel_split(num_docs: int, seed: int = 0,
+                         start_ts: int = 1_700_000_000) -> bytes:
+    """An otel-traces-shaped split (BASELINE config #5): span duration
+    i64 fast column (log-normal micros), timestamp, service ordinal."""
+    rng = np.random.RandomState(seed)
+    num_docs_padded = pad_to(num_docs, DOC_PAD)
+    builder = SplitFileBuilder()
+    fields: dict = {}
+
+    ts_seconds = np.sort(rng.randint(0, 3600, size=num_docs)) + start_ts
+    ts_micros = np.zeros(num_docs_padded, dtype=np.int64)
+    ts_micros[:num_docs] = ts_seconds.astype(np.int64) * 1_000_000
+    present = np.zeros(num_docs_padded, dtype=np.uint8)
+    present[:num_docs] = 1
+    builder.add_array("col.span_start_timestamp.values", ts_micros)
+    builder.add_array("col.span_start_timestamp.present", present)
+    fields["span_start_timestamp"] = {
+        "type": "datetime", "fast": True, "column_kind": "numeric",
+        "min_value": int(ts_micros[0]),
+        "max_value": int(ts_micros[num_docs - 1]),
+    }
+
+    durations = np.zeros(num_docs_padded, dtype=np.int64)
+    durations[:num_docs] = np.exp(
+        rng.normal(9.0, 1.5, size=num_docs)).astype(np.int64) + 1
+    builder.add_array("col.span_duration_micros.values", durations)
+    builder.add_array("col.span_duration_micros.present", present)
+    fields["span_duration_micros"] = {
+        "type": "i64", "fast": True, "column_kind": "numeric",
+        "min_value": 1, "max_value": int(durations.max()),
+    }
+
+    services = rng.randint(0, len(_OTEL_SERVICES),
+                           size=num_docs).astype(np.int32)
+    _write_categorical(builder, fields, "service_name", _OTEL_SERVICES,
+                       services, num_docs, num_docs_padded)
+
+    builder.add_array("store.data", np.zeros(0, dtype=np.uint8))
+    builder.add_array("store.block_offsets", np.array([0], dtype=np.int64))
+    builder.add_array("store.block_first_doc", np.array([0], dtype=np.int32))
+    footer = SplitFooter(
+        num_docs=num_docs, num_docs_padded=num_docs_padded, arrays={},
+        fields=fields,
+        time_range=(int(ts_micros[0]), int(ts_micros[num_docs - 1])),
+        extra={"synthetic": True},
+    )
+    return builder.finish(footer)
 
 
 def _write_store(builder, ts_seconds, tenants, sev, num_docs):

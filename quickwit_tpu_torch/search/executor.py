@@ -28,9 +28,13 @@ The JAX package's `guided_topk` (an f32 screen that re-dispatches through
 `exact_topk` when it cannot certify its answer) is not used: this program
 runs `exact_topk`, and `topk_safe` is always 1.
 
-Not ported yet, and raising NotImplementedError naming the slice that
-will: bucket metrics, range, composite and multivalued-terms aggregations,
-and top-level metric aggregations.
+Aggregations (`_eval_aggs`): bucket counts and bucket metrics over
+terms, multivalued terms, histogram and date_histogram at any nesting
+depth; range buckets (one mask per range, since ranges overlap);
+composite buckets (a stable lexicographic sort over the doc space, run
+starts, and segment reductions per run); top-level stats, percentiles and
+cardinality. Every reduction is in `ops/aggs.py`; none uses f64 atomics,
+so a request gives the same bits on every run.
 
 Scalars stay on the host (numpy) and enter torch ops as host numbers,
 except divisors, which become 0-dim device tensors (`ops.bm25.f32_scalar`):
@@ -57,10 +61,6 @@ from .plan import (
     MetricAggExec, PBool, PMaskRef, PMatchAll, PMatchNone, PNormPresence,
     PPostings, PPresence, PRange,
 )
-
-_AGGS_SLICE = ("the remaining-aggregations slice (bucket metrics, range, "
-               "composite, multivalued terms, top-level metrics, HLL, "
-               "percentiles)")
 
 
 def _bucket_tree_blocks_posting_space(children) -> bool:
@@ -104,27 +104,6 @@ def _posting_space_eligible(plan: LoweredPlan) -> bool:
             if a.metric.kind == "cardinality":
                 return False
     return True
-
-
-def _check_ported(plan: LoweredPlan) -> None:
-    """Raise for plans this package cannot run yet, before any work: every
-    aggregation but bucket counts over terms, histogram and date_histogram
-    (nested or not)."""
-    stack = []
-    for a in plan.aggs:
-        if not isinstance(a, BucketAggExec):
-            raise NotImplementedError(
-                f"aggregation {a.name!r} needs {_AGGS_SLICE}")
-        stack.append(a)
-    while stack:
-        a = stack.pop()
-        if a.kind in ("range", "terms_mv"):
-            raise NotImplementedError(
-                f"aggregation {a.name!r} ({a.kind}) needs {_AGGS_SLICE}")
-        if a.metrics:
-            raise NotImplementedError(
-                f"bucket metrics under {a.name!r} need {_AGGS_SLICE}")
-        stack.extend(a.subs)
 
 
 class _RebaseView:
@@ -179,6 +158,40 @@ def _where_idx(mask: torch.Tensor, idx: torch.Tensor, sentinel: int):
     return torch.where(mask, idx.to(torch.int32), sentinel)
 
 
+def _cardinality_hashes(met, arrays):
+    """(hashes, present) per doc for a cardinality metric, the hashes as
+    u64 bits in i64: text columns gather per-ordinal TERM hashes from the
+    plan's host-built table (cross-split identity), numeric columns mix the
+    64-bit value pattern on the device. The one derivation: the bucket,
+    range and top-level metric paths all call it."""
+    if met.hash_slot >= 0:
+        ordinals = arrays[met.values_slot]
+        present = ordinals >= 0
+        table = arrays[met.hash_slot].view(torch.int64)
+        hashes = table[torch.clamp(ordinals, min=0).to(torch.int64)]
+    else:
+        present = arrays[met.present_slot].to(torch.bool)
+        hashes = agg_ops._hll_mix64(
+            agg_ops.value_bits(arrays[met.values_slot]))
+    return hashes, present
+
+
+def _histogram_index(kind: str, values: torch.Tensor, origin,
+                     interval) -> torch.Tensor:
+    """int32 bucket index of a (date_)histogram: exact integer floor
+    division for dates, f64 floor of the quotient otherwise (the divisor a
+    device tensor: CUDA divides by a host scalar through its reciprocal)."""
+    if kind == "date_histogram":
+        raw = torch.div(values - int(origin), int(interval),
+                        rounding_mode="floor")
+    else:
+        divisor = torch.tensor(np.float64(interval), dtype=torch.float64,
+                               device=values.device)
+        raw = torch.floor((agg_ops.as_f64(values) - float(origin))
+                          / divisor)
+    return raw.to(torch.int32)
+
+
 def _bucket_idx(a: BucketAggExec, arrays, scalars, mask):
     """(idx, in_bucket_mask): per-doc bucket index with the out-of-range
     sentinel `num_buckets` for dropped docs."""
@@ -188,25 +201,122 @@ def _bucket_idx(a: BucketAggExec, arrays, scalars, mask):
         ordinals = values
         m = mask & (ordinals >= 0)
         return _where_idx(m, ordinals, nb), m
-    present = arrays[a.present_slot].to(torch.bool)
-    m = mask & present
-    origin = scalars[a.origin_slot]
-    interval = scalars[a.interval_slot]
-    if a.kind == "date_histogram":
-        # exact integer math: floor division as in the JAX program
-        raw = torch.div(values - int(origin), int(interval),
-                        rounding_mode="floor")
-    else:
-        divisor = torch.tensor(np.float64(interval), dtype=torch.float64,
-                               device=values.device)
-        raw = torch.floor((values.to(torch.float64) - float(origin))
-                          / divisor)
-    idx = raw.to(torch.int32)
+    if a.kind == "terms_mv":
+        # multivalued: values are (doc, ordinal) PAIR arrays; gather the
+        # doc-level mask at each pair's doc id. Padding pairs carry
+        # ordinal -1 (dropped here) with doc 0 (an in-bounds gather)
+        pair_docs = arrays[a.present_slot].to(torch.int64)
+        m = mask[pair_docs] & (values >= 0)
+        return _where_idx(m, values, nb), m
+    m = mask & arrays[a.present_slot].to(torch.bool)
+    idx = _histogram_index(a.kind, values, scalars[a.origin_slot],
+                           scalars[a.interval_slot])
     m = m & (idx >= 0) & (idx < nb)
     return _where_idx(m, idx, nb), m
 
 
+def _bucket_metrics(metric_slots, arrays, idx, m, nb):
+    metrics: dict[str, Any] = {}
+    for met in metric_slots:
+        if met.kind == "cardinality":
+            # per-bucket HLL registers (integer scatter-max)
+            hashes, present = _cardinality_hashes(met, arrays)
+            ok = m & present
+            metrics[met.name] = {"hll": agg_ops.bucket_hll_registers(
+                _where_idx(ok, idx, nb), hashes, ok, nb)}
+            continue
+        mv = agg_ops.as_f64(arrays[met.values_slot])
+        mp = arrays[met.present_slot].to(torch.bool)
+        # docs with mm == False get the sentinel index, which every bucket
+        # reduction drops, so mv needs no extra masking passes
+        mm = m & mp
+        midx = _where_idx(mm, idx, nb)
+        need = met.kind
+        if need == "percentiles":
+            metrics[met.name] = {
+                "sketch": agg_ops.bucket_percentile_sketch(midx, mv, nb)}
+            continue
+        metrics[met.name] = _metric_state(
+            need,
+            lambda: agg_ops.bucket_sum(midx, mv, nb),
+            lambda: agg_ops.bucket_counts(midx, nb).to(torch.int64),
+            lambda: agg_ops.bucket_min(midx, mv, nb),
+            lambda: agg_ops.bucket_max(midx, mv, nb),
+            lambda: agg_ops.bucket_sum(midx, mv * mv, nb))
+    return metrics
+
+
+def _metric_state(need: str, total, count, low, high, total_sq):
+    """The state a metric kind keeps, in the JAX program's key order:
+    sum, count, min, max, sum_sq (each reduction run only when needed)."""
+    state: dict[str, Any] = {}
+    if need in ("sum", "avg", "stats", "extended_stats"):
+        state["sum"] = total()
+    if need in ("avg", "stats", "extended_stats", "value_count"):
+        state["count"] = count()
+    if need in ("min", "stats", "extended_stats"):
+        state["min"] = low()
+    if need in ("max", "stats", "extended_stats"):
+        state["max"] = high()
+    if need in ("stats", "extended_stats"):
+        state["sum_sq"] = total_sq()
+    return state
+
+
+def _eval_range_agg(a: BucketAggExec, arrays, mask):
+    """Range buckets may OVERLAP (ES counts a doc in every range it falls
+    in), so each range gets its own mask instead of one bucket index. The
+    JAX program broadcasts a [docs, ranges] mask that XLA fuses; here one
+    [docs] mask per range keeps the memory at one column."""
+    nb = a.num_buckets
+    values = agg_ops.as_f64(arrays[a.values_slot])
+    base = mask & arrays[a.present_slot].to(torch.bool)
+    froms, tos = arrays[a.froms_slot], arrays[a.tos_slot]
+    operands = []
+    for met in a.metrics:
+        if met.kind == "cardinality":
+            # c_present: the cardinality field's presence, not the range
+            # field's
+            operands.append(_cardinality_hashes(met, arrays))
+        else:
+            operands.append((agg_ops.as_f64(arrays[met.values_slot]),
+                             arrays[met.present_slot].to(torch.bool)))
+    counts = []
+    per_range: list[dict[str, list]] = [{} for _ in a.metrics]
+    for i in range(nb):
+        in_range = base & (values >= froms[i]) & (values < tos[i])
+        counts.append(in_range.sum(dtype=torch.int32))
+        for met, operand, acc in zip(a.metrics, operands, per_range):
+            for key, value in _range_metric(met.kind, operand, in_range,
+                                            mask).items():
+                acc.setdefault(key, []).append(value)
+    metrics = {met.name: {key: torch.stack(v) for key, v in acc.items()}
+               for met, acc in zip(a.metrics, per_range)}
+    return {"counts": torch.stack(counts), "metrics": metrics}
+
+
+def _range_metric(need: str, operand, in_range, mask) -> dict[str, Any]:
+    """One range's state of one metric."""
+    if need == "cardinality":
+        hashes, c_present = operand
+        return {"hll": agg_ops.hll_registers(hashes, in_range & c_present)}
+    mv, mp = operand
+    if need == "percentiles":
+        return {"sketch": agg_ops.percentile_sketch(mv, mp,
+                                                    in_range & mask)}
+    mm = in_range & mp
+    return _metric_state(
+        need,
+        lambda: torch.where(mm, mv, 0.0).sum(),
+        lambda: mm.sum(dtype=torch.int64),
+        lambda: agg_ops.masked_extreme(mv, mm, largest=False),
+        lambda: agg_ops.masked_extreme(mv, mm, largest=True),
+        lambda: torch.where(mm, mv * mv, 0.0).sum())
+
+
 def _eval_bucket_agg(a: BucketAggExec, arrays, scalars, mask):
+    if a.kind == "range":
+        return _eval_range_agg(a, arrays, mask)
     idx, m = _bucket_idx(a, arrays, scalars, mask)
     return _eval_bucket_level(a, arrays, scalars, mask, idx, m,
                               a.num_buckets)
@@ -220,23 +330,169 @@ def _eval_bucket_level(a: BucketAggExec, arrays, scalars, mask, idx, m,
     child_flat = parent_flat * child_nb + child_local."""
     out: dict[str, Any] = {
         "counts": agg_ops.bucket_counts(_where_idx(m, idx, space), space),
-        "metrics": {},
+        "metrics": _bucket_metrics(a.metrics, arrays, idx, m, space),
     }
+    subs = _eval_children(a.subs, arrays, scalars, mask, idx, m, space)
+    if subs:
+        out["subs"] = subs
+    return out
+
+
+def _eval_children(children, arrays, scalars, mask, idx, m, space: int):
     subs = []
-    for child in a.subs:
+    for child in children:
         nb2 = child.num_buckets
         idx2, m2 = _bucket_idx(child, arrays, scalars, mask)
         both = m & m2
         combined = _where_idx(both, idx * nb2 + idx2, space * nb2)
         subs.append(_eval_bucket_level(child, arrays, scalars, mask,
                                        combined, both, space * nb2))
-    if subs:
-        out["subs"] = subs
+    return subs
+
+
+def _lexsort(keys: list) -> torch.Tensor:
+    """The permutation that sorts the i32 `keys` lexicographically (first
+    key most significant), ties kept in input order. Two keys pack into one
+    i64 (the first in the high word, the second offset to unsigned in the
+    low word); the packed keys sort by successive stable sorts, least
+    significant first. `jax.lax.sort` is not guaranteed stable, so only
+    the order inside a run can differ from the JAX program's."""
+    packed = []
+    for i in range(0, len(keys), 2):
+        hi = keys[i].to(torch.int64)
+        if i + 1 < len(keys):
+            hi = hi * (1 << 32) + (keys[i + 1].to(torch.int64) + (1 << 31))
+        packed.append(hi)
+    perm = None
+    for key in reversed(packed):
+        if perm is None:
+            perm = torch.argsort(key, stable=True)
+        else:
+            perm = perm[torch.argsort(key[perm], stable=True)]
+    return perm
+
+
+def _eval_composite_agg(a: CompositeAggExec, arrays, scalars, mask):
+    """Composite buckets: one lexicographic sort over the doc space,
+    run-boundary detection, and the first `size` distinct key tuples with
+    exact counts; no dynamic hash tables.
+
+    Per-source i32 keys use the order-preserving encoding documented on
+    CompositeSourceExec (missing=0, value=(idx+1)*2, after markers odd)."""
+    num = mask.shape[0]
+    dev = mask.device
+    m = mask
+    keys = []
+    for s in a.sources:
+        if s.kind == "terms_ord":
+            ordinals = arrays[s.values_slot]
+            present = ordinals >= 0
+            key = (ordinals.to(torch.int32) + 1) * 2
+        else:
+            present = arrays[s.present_slot].to(torch.bool)
+            idx = _histogram_index(s.kind, arrays[s.values_slot],
+                                   scalars[s.origin_slot],
+                                   scalars[s.interval_slot])
+            key = (idx + 1) * 2
+        if s.missing_bucket:
+            key = torch.where(present, key, 0)
+        else:
+            m = m & present
+        keys.append(key)
+    if a.has_after:
+        # strict lexicographic tuple > after, cascaded per source
+        gt = torch.zeros(num, dtype=torch.bool, device=dev)
+        eq = torch.ones(num, dtype=torch.bool, device=dev)
+        for key, s in zip(keys, a.sources):
+            marker = int(scalars[s.after_slot])
+            gt = gt | (eq & (key > marker))
+            eq = eq & (key == marker)
+        m = m & gt
+    keys = [torch.where(m, key, 2**31 - 1) for key in keys]
+    # the permutation sorts the keys; metric operands and the doc order of
+    # each run (for bucket children) follow it
+    perm = _lexsort(keys)
+    sorted_keys = [key[perm] for key in keys]
+    valid_total = m.sum(dtype=torch.int32)
+    idxs = torch.arange(num, dtype=torch.int32, device=dev)
+    diff = torch.zeros(max(num - 1, 0), dtype=torch.bool, device=dev)
+    for sk in sorted_keys:
+        diff = diff | (sk[1:] != sk[:-1])
+    is_start = torch.cat([torch.ones(min(num, 1), dtype=torch.bool,
+                                     device=dev), diff])
+    is_start = is_start & (idxs < valid_total)
+    start_pos = torch.where(is_start, idxs, num)
+    k_runs = min(a.size, num)
+    # ascending run starts: the k_runs + 1 smallest start positions
+    starts = torch.topk(start_pos, min(k_runs + 1, num), largest=False,
+                        sorted=True).values
+    if starts.shape[0] < k_runs + 1:
+        starts = torch.cat([starts, torch.full(
+            (k_runs + 1 - starts.shape[0],), num, dtype=torch.int32,
+            device=dev)])
+    safe = torch.clamp(starts[:k_runs], 0, num - 1).to(torch.int64)
+    run_keys = torch.stack([sk[safe] for sk in sorted_keys])  # [S, k_runs]
+    ends = torch.minimum(starts[1:], valid_total)
+    counts = torch.where(starts[:k_runs] < valid_total,
+                         ends - starts[:k_runs], 0)
+    out: dict[str, Any] = {"run_keys": run_keys, "counts": counts}
+    # per-position run id = rank of this position's run among the first
+    # k_runs (positions past them drop)
+    run_id = torch.cumsum(is_start.to(torch.int32), 0,
+                          dtype=torch.int32) - 1
+    in_range = (idxs < valid_total) & (run_id >= 0) & (run_id < k_runs)
+    if a.subs:
+        # each doc's run id back at its original position (a permutation:
+        # every index written once): bucket children then evaluate with
+        # the normal nested machinery, the composite as the outermost
+        # radix level
+        run_id_doc = torch.empty(num, dtype=torch.int32, device=dev)
+        run_id_doc[perm] = torch.where(in_range, run_id, k_runs)
+        in_run = run_id_doc < k_runs
+        out["subs"] = _eval_children(a.subs, arrays, scalars, mask,
+                                     run_id_doc, in_run, k_runs)
+    if a.metrics:
+        metrics: dict[str, Any] = {}
+        for met in a.metrics:
+            mv = agg_ops.as_f64(arrays[met.values_slot])[perm]
+            mp = (arrays[met.present_slot].to(torch.bool) & m)[perm]
+            seg = _where_idx(in_range & mp, run_id, k_runs)
+            metrics[met.name] = _metric_state(
+                met.kind,
+                lambda: agg_ops.bucket_sum(seg, mv, k_runs),
+                lambda: agg_ops.bucket_counts(seg, k_runs).to(torch.int64),
+                lambda: agg_ops.bucket_min(seg, mv, k_runs),
+                lambda: agg_ops.bucket_max(seg, mv, k_runs),
+                lambda: agg_ops.bucket_sum(seg, mv * mv, k_runs))
+        out["metrics"] = metrics
     return out
 
 
 def _eval_aggs(aggs, gathered, scalars, valid):
-    return [_eval_bucket_agg(a, gathered, scalars, valid) for a in aggs]
+    agg_out = []
+    for a in aggs:
+        if isinstance(a, CompositeAggExec):
+            agg_out.append(_eval_composite_agg(a, gathered, scalars, valid))
+        elif isinstance(a, BucketAggExec):
+            agg_out.append(_eval_bucket_agg(a, gathered, scalars, valid))
+        elif isinstance(a, MetricAggExec):
+            met = a.metric
+            if met.kind == "cardinality":
+                hashes, present = _cardinality_hashes(met, gathered)
+                agg_out.append(
+                    {"hll": agg_ops.hll_registers(hashes, valid & present)})
+                continue
+            mv = gathered[met.values_slot]
+            mp = gathered[met.present_slot]
+            if met.kind == "percentiles":
+                agg_out.append(
+                    {"sketch": agg_ops.percentile_sketch(mv, mp, valid)})
+            else:
+                agg_out.append(
+                    {"stats": agg_ops.stats_state(mv, mp, valid)})
+        else:
+            raise TypeError(f"unknown agg exec {type(a).__name__}")
+    return agg_out
 
 
 def _keyed_for(by, descending, values_slot, present_slot, view, mask,
@@ -252,7 +508,7 @@ def _keyed_for(by, descending, values_slot, present_slot, view, mask,
             key = -key
         return torch.where(mask, key, neg_inf)
     if by == "column":
-        key = view[values_slot].to(torch.float64)
+        key = agg_ops.as_f64(view[values_slot])
         if not descending:
             key = -key
         if present_slot == PRESENT_FROM_VALUES:
@@ -274,7 +530,6 @@ def _build_posting_space(plan: LoweredPlan, k: int):
     values f64[k], second sort values f64[k] | None, doc ids i32[k], hit
     scores f32[k], count i32, topk_safe f64, agg states), the JAX
     program's result tree."""
-    _check_ported(plan)
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     padded = plan.num_docs_padded
 
@@ -514,7 +769,6 @@ def _build(plan: LoweredPlan, k: int, device):
     tree. Posting-space eligible plans take `_build_posting_space`."""
     if _posting_space_eligible(plan):
         return _build_posting_space(plan, k)
-    _check_ported(plan)
     padded = plan.num_docs_padded
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     eval_node = _node_evaluator(padded, device)

@@ -1408,10 +1408,15 @@ class Lowering:
                               for _, lo, _ in spec.ranges], dtype=np.float64)
             tos = np.array([hi if hi is not None else np.inf
                             for _, _, hi in spec.ranges], dtype=np.float64)
+            # the bounds belong to the request, not the split: their bytes
+            # are part of the staging key, or a later request with a range
+            # agg of the same name would reuse these staged bounds (the
+            # JAX package keys them by name alone)
+            bounds = (froms.tobytes() + tos.tobytes()).hex()
             froms_slot = self.b.add_array(
-                f"agg.{spec.name}.range_froms", lambda: froms)
+                f"agg.{spec.name}.range_froms.{bounds}", lambda: froms)
             tos_slot = self.b.add_array(
-                f"agg.{spec.name}.range_tos", lambda: tos)
+                f"agg.{spec.name}.range_tos.{bounds}", lambda: tos)
             return BucketAggExec(
                 spec.name, "range", values_slot, present_slot,
                 len(spec.ranges),

@@ -390,3 +390,209 @@ def test_doc_space_program_stays_on_cuda(cuda_device):
         np.testing.assert_array_equal(got[key], want[key])
     for g, w in zip(got["aggs"], want["aggs"]):
         np.testing.assert_array_equal(g["counts"], w["counts"])
+
+
+# --- aggregations: each op and program on the card equals its CPU run --------
+#
+# Tolerances: exact (bit for bit) for counts, minima, maxima, sketches, HLL
+# registers, composite keys and integer sums below 2^53; rtol=1e-12 for
+# other f64 sums, whose reduction order differs between the CPU and the
+# card. Two calls on the card give the same bits.
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.int64) if a.dtype == np.float64 else a
+
+
+def _agg_op_inputs(n, nb, seed):
+    rng = np.random.RandomState(seed)
+    idx = torch.from_numpy(rng.randint(-1, nb + 2, n).astype(np.int32))
+    ints = torch.from_numpy(rng.randint(-10**6, 10**6, n).astype(np.int64))
+    floats = torch.from_numpy(np.where(
+        rng.rand(n) < 0.1, rng.choice([-0.0, 0.0, np.nan], n),
+        rng.standard_normal(n) * 1e3))
+    hashes = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, n,
+                                          dtype=np.int64))
+    valid = torch.from_numpy(rng.rand(n) < 0.8)
+    return idx, ints, floats, hashes, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [7, 64, 65, 700])
+def test_agg_ops_on_cuda_match_cpu(cuda_device, nb):
+    from quickwit_tpu_torch.ops import aggs
+    idx, ints, floats, hashes, valid = _agg_op_inputs(2_000_003, nb, nb)
+    calls = {
+        "counts": lambda i, v, f, h, ok: aggs.bucket_counts(i, nb),
+        "sum_int": lambda i, v, f, h, ok: aggs.bucket_sum(i, v, nb),
+        "sum_f64": lambda i, v, f, h, ok: aggs.bucket_sum(i, f, nb),
+        "min": lambda i, v, f, h, ok: aggs.bucket_min(i, f, nb),
+        "max": lambda i, v, f, h, ok: aggs.bucket_max(i, f, nb),
+        "sketch": lambda i, v, f, h, ok: aggs.bucket_percentile_sketch(
+            i, v.abs(), nb),
+        "hll": lambda i, v, f, h, ok: aggs.bucket_hll_registers(
+            i, h, ok, nb),
+        "stats": lambda i, v, f, h, ok: aggs.stats_state(f, ok, ok),
+        "hll_numeric": lambda i, v, f, h, ok: aggs.hll_from_numeric(f, ok),
+    }
+    cpu_args = (idx, ints, floats, hashes, valid)
+    gpu_args = tuple(t.to(cuda_device) for t in cpu_args)
+    for name, fn in calls.items():
+        want = fn(*cpu_args).numpy()
+        first = fn(*gpu_args).cpu().numpy()
+        second = fn(*gpu_args).cpu().numpy()
+        assert first.dtype == want.dtype and first.shape == want.shape
+        np.testing.assert_array_equal(_bits(first), _bits(second),
+                                      err_msg=name)
+        if name in ("sum_f64", "stats"):
+            np.testing.assert_allclose(first, want, rtol=1e-12, atol=0,
+                                       err_msg=name)
+            if name == "stats":   # count, min, max exact
+                np.testing.assert_array_equal(_bits(first[[0, 3, 4]]),
+                                              _bits(want[[0, 3, 4]]))
+        else:
+            np.testing.assert_array_equal(_bits(first), _bits(want),
+                                          err_msg=name)
+
+
+@pytest.mark.gpu
+def test_u64_lanes_convert_on_cuda(cuda_device):
+    from quickwit_tpu_torch.ops import aggs
+    values = np.array([0, 1, 2**63 - 1, 2**63, 2**63 + 1025, 2**64 - 1],
+                      dtype=np.uint64)
+    got = aggs.as_f64(torch.from_numpy(values).to(cuda_device)).cpu()
+    np.testing.assert_array_equal(got.numpy(), values.astype(np.float64))
+
+
+def _close_tree(want, got, path="aggs"):
+    if isinstance(want, dict):
+        assert want.keys() == got.keys(), path
+        for key in want:
+            _close_tree(want[key], got[key], f"{path}.{key}")
+    elif isinstance(want, (list, tuple)):
+        assert len(want) == len(got), path
+        for i, (w, g) in enumerate(zip(want, got)):
+            _close_tree(w, g, f"{path}[{i}]")
+    else:
+        want, got = np.asarray(want), np.asarray(got)
+        assert want.dtype == got.dtype and want.shape == got.shape, path
+        last = path.rsplit(".", 1)[-1]
+        if last in ("sum", "sum_sq", "stats"):
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=0,
+                                       err_msg=path)
+            if last == "stats":
+                np.testing.assert_array_equal(_bits(got[[0, 3, 4]]),
+                                              _bits(want[[0, 3, 4]]),
+                                              err_msg=path)
+        else:
+            np.testing.assert_array_equal(_bits(got), _bits(want),
+                                          err_msg=path)
+
+
+def _mv_split():
+    """The port's SplitWriter: multivalued raw tags, a FOR-packed u64."""
+    from quickwit_tpu_torch.index import SplitWriter
+    from quickwit_tpu_torch.models.doc_mapper import (
+        DocMapper, FieldMapping, FieldType)
+    mapper = DocMapper(field_mappings=[
+        FieldMapping("ts", FieldType.DATETIME, fast=True,
+                     input_formats=("unix_timestamp",)),
+        FieldMapping("tags", FieldType.TEXT, tokenizer="raw", fast=True),
+        FieldMapping("bytes", FieldType.U64, fast=True)],
+        timestamp_field="ts")
+    rng = np.random.RandomState(4)
+    writer = SplitWriter(mapper)
+    for i in range(5000):
+        writer.add_json_doc({
+            "ts": 1_600_000_000 + i,
+            "tags": list(rng.choice([f"t{j}" for j in range(50)],
+                                    rng.randint(1, 5))),
+            "bytes": int(2**63 + rng.randint(0, 50_000) * 8)})
+    storage = RamStorage(Uri.parse("ram:///cuda-mv"))
+    storage.put("s.split", writer.finish())
+    return mapper, SplitReader(storage, "s.split")
+
+
+def _agg_plans():
+    """(name, mapper, reader, query, aggs, k) of each aggregation program."""
+    from quickwit_tpu_torch.index.synthetic import (
+        OTEL_BENCH_MAPPER, synthetic_otel_split)
+    from quickwit_tpu_torch.query.ast import MatchAll
+    storage = RamStorage(Uri.parse("ram:///cuda-aggs"))
+    storage.put("h.split", synthetic_hdfs_split(50_000, seed=7))
+    storage.put("o.split", synthetic_otel_split(50_000, seed=7))
+    hdfs = SplitReader(storage, "h.split")
+    otel = SplitReader(storage, "o.split")
+    mv_mapper, mv = _mv_split()
+    t0 = 1_600_000_000 * 1_000_000
+    day = 86400 * 1_000_000
+    c2 = Bool(must=(Term("severity_text", "ERROR"),),
+              should=(Term("body", body_term(3)),),
+              filter=(Range("timestamp", lower=RangeBound(t0 + day, True),
+                            upper=RangeBound(t0 + 4 * day, False)),))
+    metrics = {"s": {"stats": {"field": "tenant_id"}},
+               "p": {"percentiles": {"field": "tenant_id"}},
+               "x": {"extended_stats": {"field": "timestamp"}}}
+    duration = "span_duration_micros"
+    return [
+        ("bucket_metrics_posting_space", HDFS_MAPPER, hdfs,
+         Term("severity_text", "ERROR"), {
+             "per_day": {"date_histogram": {"field": "timestamp",
+                                            "fixed_interval": "1d"},
+                         "aggs": metrics},
+             "sev": {"terms": {"field": "severity_text"},
+                     "aggs": {"m": {"max": {"field": "timestamp"}}}}}, 10),
+        ("c2_range_composite_cardinality", HDFS_MAPPER, hdfs, c2, {
+            "card": {"cardinality": {"field": "tenant_id"}},
+            "r": {"range": {"field": "timestamp", "ranges": [
+                {"to": t0 + 3 * day}, {"from": t0 + 2 * day},
+                {"from": t0 + day, "to": t0 + 5 * day}]},
+                "aggs": {"s": {"sum": {"field": "tenant_id"}},
+                         "c": {"cardinality": {"field": "tenant_id"}}}},
+            "comp": {"composite": {"size": 20, "sources": [
+                {"sev": {"terms": {"field": "severity_text"}}},
+                {"day": {"date_histogram": {"field": "timestamp",
+                                            "fixed_interval": "1d"}}}]},
+                "aggs": {"a": {"avg": {"field": "tenant_id"}},
+                         "t": {"terms": {"field": "tenant_id"}}}}}, 100),
+        ("otel_latency", OTEL_BENCH_MAPPER, otel, MatchAll(), {
+            "p": {"percentiles": {"field": duration,
+                                  "percents": [50, 95, 99]}},
+            "svc": {"terms": {"field": "service_name"}, "aggs": {
+                "p": {"percentiles": {"field": duration}},
+                "x": {"extended_stats": {"field": duration}},
+                "c": {"cardinality": {"field": duration}}}}}, 0),
+        ("mv_tags_packed_u64", mv_mapper, mv,
+         Range("bytes", lower=RangeBound(2**63 + 80_000, True)), {
+             "tags": {"terms": {"field": "tags", "size": 50}},
+             "s": {"stats": {"field": "bytes"}},
+             "c": {"cardinality": {"field": "bytes"}},
+             "h": {"histogram": {"field": "bytes", "interval": 40_000},
+                   "aggs": {"m": {"min": {"field": "bytes"}}}}}, 0),
+    ]
+
+
+@pytest.mark.gpu
+def test_agg_programs_on_cuda_match_cpu(cuda_device):
+    """Each aggregation program on the card: no op returns a host tensor,
+    two calls give byte-equal packed results, and the readback equals the
+    CPU run's."""
+    from quickwit_tpu_torch.query.aggregations import parse_aggs
+    for name, mapper, reader, query, aggs, k in _agg_plans():
+        plan = lower_request(query, mapper, reader, parse_aggs(aggs))
+        cpu_arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
+        gpu_arrays = [a.to(cuda_device) for a in cpu_arrays]
+        log = _DeviceLog()
+        with log:
+            executor._build(plan, k, cuda_device)(
+                gpu_arrays, tuple(plan.scalars), plan.num_docs)
+        assert not log.off_card, (name, log.off_card)
+        packed = executor._get_packed_executor(plan, k, cuda_device)
+        first, spec = packed(gpu_arrays, tuple(plan.scalars), plan.num_docs)
+        second, _ = packed(gpu_arrays, tuple(plan.scalars), plan.num_docs)
+        assert torch.equal(first.view(torch.int64), second.view(torch.int64))
+        got = executor.readback_plan_result(first, spec)
+        want = executor.execute_plan(plan, k, cpu_arrays, device="cpu")
+        assert got["count"] == want["count"] > 0, name
+        for key in ("sort_values", "doc_ids", "scores"):
+            np.testing.assert_array_equal(got[key], want[key])
+        _close_tree(want["aggs"], got["aggs"], name)

@@ -142,31 +142,56 @@ def test_packed_readback_roundtrip(readers):
 
 
 def test_unported_plans_raise(readers):
-    """Only the remaining-aggregations slice raises, on posting-space and
-    doc-space plans alike: top-level metrics, range aggregations and
-    bucket metrics. A Bool root with bucket counts runs."""
-    _, t_reader = readers
-    bool_query = TQ.Bool(must=(TQ.Term("severity_text", "ERROR"),),
-                         should=(TQ.Term("body", body_term(3)),))
-    unported = (
+    """The plans that raised before the remaining-aggregations slice was
+    ported (top-level metrics, range aggregations and bucket metrics) now
+    run, on posting-space and doc-space plans alike, and their whole result
+    tree equals the JAX program's exactly (tenant_id sums are integers far
+    below 2^53). A Bool root with bucket counts still runs."""
+    j_reader, t_reader = readers
+    bool_query = (lambda Q: Q.Bool(must=(Q.Term("severity_text", "ERROR"),),
+                                   should=(Q.Term("body", body_term(3)),)))
+    formerly_unported = (
         {"t": {"stats": {"field": "tenant_id"}}},
         {"r": {"range": {"field": "tenant_id", "ranges": [{"to": 5}]}}},
         {"s": {"terms": {"field": "severity_text"},
                "aggs": {"m": {"max": {"field": "tenant_id"}}}}},
     )
-    for query in (TQ.Term("severity_text", "ERROR"), bool_query):
-        for aggs in unported:
-            plan = t_lower(query, T_HDFS_MAPPER, t_reader,
-                           t_parse_aggs(aggs))
-            arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
-            with pytest.raises(NotImplementedError, match="aggregations"):
-                t_executor.execute_plan(plan, 10, arrays, device="cpu")
-    plan = t_lower(bool_query, T_HDFS_MAPPER, t_reader, t_parse_aggs(AGGS))
+    for query in (lambda Q: Q.Term("severity_text", "ERROR"), bool_query):
+        for aggs in formerly_unported:
+            j_plan = j_lower(query(JQ), J_HDFS_MAPPER, j_reader,
+                             j_parse_aggs(aggs))
+            t_plan = t_lower(query(TQ), T_HDFS_MAPPER, t_reader,
+                             t_parse_aggs(aggs))
+            assert (t_executor._posting_space_eligible(t_plan)
+                    == j_executor._posting_space_eligible(j_plan))
+            j_res = j_executor.execute_plan(
+                j_plan, 10, [jnp.asarray(a) for a in j_plan.arrays])
+            t_res = t_executor.execute_plan(
+                t_plan, 10,
+                [torch.from_numpy(np.array(a)) for a in t_plan.arrays],
+                device="cpu")
+            assert t_res["count"] == j_res["count"] > 0
+            np.testing.assert_array_equal(t_res["doc_ids"],
+                                          np.asarray(j_res["doc_ids"]))
+            _assert_tree_equal(j_res["aggs"], [
+                _as_tensors(tree) for tree in t_res["aggs"]])
+    plan = t_lower(bool_query(TQ), T_HDFS_MAPPER, t_reader,
+                   t_parse_aggs(AGGS))
     assert not t_executor._posting_space_eligible(plan)
     arrays = [torch.from_numpy(np.array(a)) for a in plan.arrays]
     res = t_executor.execute_plan(plan, 10, arrays, device="cpu")
     assert res["count"] > 0
     assert int(res["aggs"][1]["counts"].sum()) == res["count"]
+
+
+def _as_tensors(tree):
+    """A readback tree (numpy leaves) with torch leaves, for
+    `_assert_tree_equal`."""
+    if isinstance(tree, dict):
+        return {key: _as_tensors(v) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_tensors(v) for v in tree)
+    return torch.from_numpy(np.asarray(tree))
 
 
 @pytest.mark.parametrize("num_buckets", [1, 4, 64, 65, 700])
