@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's single-split leaf search on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--docs N] [--iters N]
+    python3 chip_smoke.py [--docs N] [--so-docs N] [--iters N]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -63,14 +63,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             must equal the CPU's (f64 sums to rtol 1e-12, everything else
             exactly).
 6. timing : for flagship, body_top10, c2 and the three timed aggregation
-            requests: warm p50/p90 of the whole leaf call, its phases (plan,
-            stage, execute), a profiler window (device busy share, ops per
-            call, the top device ops by time; Chrome traces go to
+            requests: warm p50/p90 of the whole leaf call, its phases
+            (plan, stage, execute), a profiler window (device busy share,
+            ops per call, the top device ops by time; Chrome traces go to
             chip_traces/); and per kernel: its time by CUDA events (L2
             flushed before every launch), the same launches replayed from a
             CUDA graph, the plain version's time, the nearest library call,
             its bound, and the floor set by the 32-byte sectors that its
-            norm gather touches.
+            norm gather touches. These run before phase 7 brings its split
+            into the process: what a process allocates first moves where
+            c5's sketch counters land, and with them the time of its
+            scatter (tools/sketch_scatter_probe.py).
+7. phrase : a stackoverflow split from the port's generator (5M docs, seed
+            11: `bench.py`'s BASELINE config 4 corpus) written to a split
+            file in a temporary directory outside the checkout, opened
+            through the resolver's `file://` backend and read through
+            `CountingStorage` (the reads and bytes of the cold open and of
+            each cuda call are printed). With the counters zeroed again:
+            - c4_phrase_bm25_top20 (phrase "t000010 t000011", top-20 by
+              BM25; one score_topk launch);
+            - c4 at slop 2 on the same reader right after c4 (one launch),
+              which must differ from c4 and equal its run on a fresh reader
+              (one launch);
+            - the phrase prefix "t000010 t00001" (a Bool of phrases in doc
+              space), the phrase filtered to the split's last 30 days, and
+              c4 with its own 20th score pushed down as the threshold (same
+              hits), none of which may launch score_topk.
+            Each response must equal the port's `device="cpu"` run on the
+            same reader, with num_hits > 0. Then c4 is timed as in phase 6.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -87,6 +107,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -727,6 +748,106 @@ def check_aggregations(leaf, st, collector_mod, reqs, splits, dev) -> None:
 
 
 # --------------------------------------------------------------------------
+# phase 7: phrase (BASELINE config 4) over a split file
+
+SO_SEED = 11    # bench.py's stackoverflow seed
+C4_TEXT = "t000010 t000011"
+DAY_US = 86400 * 1_000_000
+
+
+def phrase_requests(SearchRequest, FullText, PhrasePrefix, Bool, Range,
+                    RangeBound, time_range) -> dict:
+    """`bench.py`'s c4_phrase_bm25_top20 and its variants: slop 2, a phrase
+    prefix, and the phrase filtered to the last 30 days of the split."""
+    def req(query):
+        return SearchRequest(index_ids=["stackoverflow"], query_ast=query,
+                             max_hits=20)
+
+    c4 = FullText("body", C4_TEXT, mode="phrase")
+    last_30_days = Range("creation_date",
+                         lower=RangeBound(time_range[1] - 30 * DAY_US, True),
+                         upper=RangeBound(time_range[1], True))
+    return {
+        "c4_phrase_bm25_top20": req(c4),
+        "c4_slop2": req(FullText("body", C4_TEXT, mode="phrase", slop=2)),
+        "c4_phrase_prefix": req(PhrasePrefix("body", "t000010 t00001")),
+        "c4_bool_last_30_days": req(Bool(must=(c4,),
+                                         filter=(last_30_days,))),
+    }
+
+
+def io_mark(counters):
+    return counters.get_slice, counters.get_slice_bytes, counters.get_all
+
+
+def io_delta(counters, before) -> str:
+    """The reads and bytes since `before` (an `io_mark`)."""
+    now = io_mark(counters)
+    return (f"reads={now[0] - before[0] + now[2] - before[2]} "
+            f"bytes={now[1] - before[1]}")
+
+
+def check_phrase(leaf, st, ex, pruning, mapper, reqs, open_reader, counters,
+                 dev) -> dict:
+    """Phase 7's requests on the card, each against its CPU run on the same
+    reader. c4 and its slop-2 form launch score_topk once per call; the
+    phrase prefix, the Bool and the threshold request launch none. Returns
+    {name: (reader, request, cuda response)}."""
+    out = {}
+    mark = io_mark(counters)
+    reader = open_reader()
+    say(f"phrase split open (cold, through CountingStorage): "
+        f"{io_delta(counters, mark)}")
+
+    def both(name, req, on=None, threshold=None, launches=0):
+        on = on or reader
+        mark = io_mark(counters)
+        before = st.score_topk.launches
+        plan, gpu = run_split(leaf, mapper, req, on, dev, threshold=threshold)
+        launched = st.score_topk.launches - before
+        io = io_delta(counters, mark)
+        _, cpu = run_split(leaf, mapper, req, on, "cpu", threshold=threshold)
+        if response_key(gpu) != response_key(cpu):
+            raise AssertionError(f"{name}: cuda response differs from cpu")
+        if gpu.num_hits <= 0 or len(gpu.partial_hits) != min(
+                req.max_hits, gpu.num_hits):
+            raise AssertionError(f"{name}: unexpected hit count")
+        if launched != launches:
+            raise AssertionError(f"{name}: score_topk launched {launched} "
+                                 f"times, not {launches}")
+        say(f"phrase {name}: num_hits={gpu.num_hits} "
+            f"posting_space={ex._posting_space_eligible(plan)} "
+            f"score_topk_launches={launched} "
+            f"top_doc_ids={[h.doc_id for h in gpu.partial_hits[:10]]} "
+            f"equal_to_cpu=True; cuda call {io}")
+        out[name] = (on, req, gpu)
+        return plan, gpu
+
+    _, c4 = both("c4_phrase_bm25_top20", reqs["c4_phrase_bm25_top20"],
+                 launches=1)
+    # the same reader, right after the exact phrase of the same terms
+    _, slop2 = both("c4_slop2", reqs["c4_slop2"], launches=1)
+    _, fresh = both("c4_slop2_fresh_reader", reqs["c4_slop2"],
+                    on=open_reader(), launches=1)
+    if hit_key(slop2) == hit_key(c4) or response_key(slop2) != \
+            response_key(fresh):
+        raise AssertionError("c4_slop2: the sloppy phrase reused the exact "
+                             "phrase's postings")
+    plan, _ = both("c4_phrase_prefix", reqs["c4_phrase_prefix"])
+    if type(plan.root).__name__ != "PBool" or not plan.root.should:
+        raise AssertionError("c4_phrase_prefix: not a Bool should root")
+    both("c4_bool_last_30_days", reqs["c4_bool_last_30_days"])
+    req = reqs["c4_phrase_bm25_top20"]
+    threshold = pruning.threshold_from_response(req, mapper, c4)
+    plan, cut = both("c4_threshold", req, threshold=threshold)
+    if threshold is None or plan.threshold_slot < 0 or \
+            hit_key(cut) != hit_key(c4):
+        raise AssertionError("c4_threshold: no pushdown, or hits differ "
+                             "from the run without it")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 6: timing
 
 def cuda_ms(torch, fn, iters: int, flush=None) -> float:
@@ -816,11 +937,112 @@ def summarize_trace(trace: dict, calls: int, wall_us: float) -> str:
                 [[name[:60], round(us / calls, 2)] for name, us in top]))
 
 
+def time_request(torch, leaf, st, ex, score_postings, name, mapper,
+                 split_reader, req, dev, iters, flush, label, here):
+    """Phase 6's timing of one request: warm p50/p90 of the leaf call and of its
+    phases, a profiler window, and, for a scored posting-space plan, the
+    kernel at the request's shape. Returns (kernel row or None, the
+    kernel's max abs error against its plain version)."""
+    plan = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
+    arrays, _ = leaf.warmup_device_arrays(split_reader, plan, dev)
+    # the whole leaf call, warm (arrays resident), host clock; the call
+    # ends in the packed readback, which synchronizes
+    walls, phases = [], {"plan": [], "stage": [], "execute": []}
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        leaf.leaf_search_single_split(req, mapper, split_reader,
+                                      "split-0", device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        p = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
+        t1 = time.perf_counter()
+        a, staged = leaf.warmup_device_arrays(split_reader, p, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        leaf.execute_prepared_split(req, mapper, split_reader, "split-0",
+                                    p, a, dev)
+        t3 = time.perf_counter()
+        phases["plan"].append((t1 - t0) * 1e3)
+        phases["stage"].append((t2 - t1) * 1e3)
+        phases["execute"].append((t3 - t2) * 1e3)
+    os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
+    summary = device_profile(
+        torch, lambda: leaf.leaf_search_single_split(
+            req, mapper, split_reader, "split-0", device=dev), 5,
+        os.path.join(here, "chip_traces", f"trace_{name}.json"))
+    say(f"[{label}] profile {name}: {summary}")
+    staged_cold = sum(arr.nbytes for arr in plan.arrays)
+    say(f"[{label}] leaf {name}: warm_p50_ms={pct(walls, 0.5):.4f} "
+        f"warm_p90_ms={pct(walls, 0.9):.4f} iters={iters} "
+        + " ".join(f"{ph}_p50_ms={pct(v, 0.5):.4f}"
+                   for ph, v in phases.items())
+        + f" staged_bytes_cold={staged_cold} staged_bytes_warm={staged}")
+
+    # the kernel at this request's shape
+    if not (ex._posting_space_eligible(plan) and plan.sort.by == "score"
+            and plan.root.scoring):
+        return None, 0.0
+    root = plan.root
+    ids, tfs = arrays[root.ids_slot], arrays[root.tfs_slot]
+    norms = arrays[root.norm_slot]
+    idf, avg = plan.scalars[root.idf_slot], plan.scalars[root.avg_len_slot]
+    k = min(req.max_hits, ids.shape[0])
+    P = ids.shape[0]
+    before = st.score_topk.launches
+    kernel_ms = cuda_ms(torch, lambda: st.score_topk(
+        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+    device_ms = graph_ms(torch, lambda: st.score_topk(
+        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+    st.score_topk.launches = before   # timing launches are not the path's
+    plain_ms = cuda_ms(torch, lambda: st.score_topk_reference(
+        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+    scores = score_postings(tfs, ids, norms, avg, idf)
+    scores = torch.where((tfs > 0) & (ids < plan.num_docs), scores,
+                         float("-inf"))
+    library_ms = cuda_ms(torch, lambda: torch.topk(scores, k),
+                         iters, flush)
+    got = st.score_topk(ids, tfs, norms, idf, avg, plan.num_docs, k)
+    st.score_topk.launches = before
+    want = st.score_topk_reference(ids, tfs, norms, idf, avg,
+                                   plan.num_docs, k)
+    num_valid = int(((tfs > 0) & (ids < plan.num_docs)).sum())
+    err = compare_winners(torch, got, want, num_valid, k)
+    # bytes: ids + tfs + one gathered norm per posting, read once; the
+    # k (f32, i64) winners written once. ops: ~11 f32 ops per posting.
+    nbytes = 12 * P + 12 * k
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = 11 * P / H100_F32_OPS_PER_S * 1e3
+    # the floor the bound does not show: each gathered norm moves its
+    # whole 32-byte sector, so count the distinct sectors this run's
+    # valid postings touch, beside the streamed ids and tfs
+    live = (tfs > 0) & (ids < plan.num_docs)
+    sectors = int(torch.unique(ids[live] // 8).numel())
+    sector_bytes = 8 * P + 32 * sectors + 12 * k
+    sector_ms = sector_bytes / H100_BYTES_PER_S * 1e3
+    say(f"[{label}] kernel score_topk @{name}: P={P} k={k} "
+        f"ms={kernel_ms:.5f} graph_replay_ms={device_ms:.5f} "
+        f"plain_ms={plain_ms:.5f} "
+        f"library_ms(torch.topk)={library_ms:.5f} "
+        f"bound_ms={max(bytes_ms, ops_ms):.6f} "
+        f"(bytes={nbytes}, ops_ms={ops_ms:.6f}) "
+        f"sector_floor_ms={sector_ms:.6f} (bytes={sector_bytes}, "
+        f"achieved_GB_per_s={sector_bytes / device_ms / 1e6:.1f} at "
+        f"graph replay) max_abs_err={err}")
+    return {
+        "at": name, "P": P, "k": k,
+        "ms": kernel_ms, "graph_replay_ms": device_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "sector_floor_ms": sector_ms, "library_ms": library_ms}, err
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--so-docs", type=int, default=5_000_000)
     args = parser.parse_args(argv)
 
     import torch
@@ -834,8 +1056,9 @@ def main(argv=None) -> int:
     from quickwit_tpu_torch.index.reader import SplitReader
     from quickwit_tpu_torch.index import SplitWriter
     from quickwit_tpu_torch.index.synthetic import (
-        HDFS_MAPPER, OTEL_BENCH_MAPPER, body_term, synthetic_hdfs_split,
-        synthetic_otel_split)
+        HDFS_MAPPER, OTEL_BENCH_MAPPER, SO_MAPPER, body_term,
+        synthetic_hdfs_split, synthetic_otel_split,
+        synthetic_stackoverflow_split)
     from quickwit_tpu_torch.models.doc_mapper import (
         DocMapper, FieldMapping, FieldType)
     from quickwit_tpu_torch.ops import aggs as agg_ops
@@ -843,16 +1066,16 @@ def main(argv=None) -> int:
     from quickwit_tpu_torch.ops.kernels import build as build_mod
     from quickwit_tpu_torch.ops.kernels import score_topk as st
     from quickwit_tpu_torch.query.ast import (
-        Bool, MatchAll, Range, RangeBound, Term)
+        Bool, FullText, MatchAll, PhrasePrefix, Range, RangeBound, Term)
     from quickwit_tpu_torch.search import collector as collector_mod
     from quickwit_tpu_torch.search import executor as ex
     from quickwit_tpu_torch.search import leaf as leaf_mod
     from quickwit_tpu_torch.search.collector import (
         IncrementalCollector, finalize_aggregations)
-    from quickwit_tpu_torch.search.leaf import (
-        execute_prepared_split, leaf_search_single_split, prepare_plan_only,
-        warmup_device_arrays)
+    from quickwit_tpu_torch.search.leaf import leaf_search_single_split
+    from quickwit_tpu_torch.search import pruning
     from quickwit_tpu_torch.search.models import SearchRequest, SortField
+    from quickwit_tpu_torch.storage import CountingStorage, StorageResolver
     from quickwit_tpu_torch.storage.ram import RamStorage
 
     dev = torch.device("cuda", 0)
@@ -980,109 +1203,65 @@ def main(argv=None) -> int:
         if is_timed:
             timed[name] = (*splits[split], req)
     for name, (mapper, split_reader, req) in timed.items():
-        plan = prepare_plan_only(req, mapper, split_reader, "split-0")
-        arrays, _ = warmup_device_arrays(split_reader, plan, dev)
-        # the whole leaf call, warm (arrays resident), host clock; the call
-        # ends in the packed readback, which synchronizes
-        walls, phases = [], {"plan": [], "stage": [], "execute": []}
-        for _ in range(args.iters):
-            t0 = time.perf_counter()
-            leaf_search_single_split(req, mapper, split_reader, "split-0",
-                                     device=dev)
-            walls.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            p = prepare_plan_only(req, mapper, split_reader, "split-0")
-            t1 = time.perf_counter()
-            a, staged = warmup_device_arrays(split_reader, p, dev)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            execute_prepared_split(req, mapper, split_reader, "split-0", p,
-                                   a, dev)
-            t3 = time.perf_counter()
-            phases["plan"].append((t1 - t0) * 1e3)
-            phases["stage"].append((t2 - t1) * 1e3)
-            phases["execute"].append((t3 - t2) * 1e3)
-        os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
-        summary = device_profile(
-            torch, lambda: leaf_search_single_split(
-                req, mapper, split_reader, "split-0", device=dev), 5,
-            os.path.join(here, "chip_traces", f"trace_{name}.json"))
-        say(f"[{label}] profile {name}: {summary}")
-        staged_cold = sum(arr.nbytes for arr in plan.arrays)
-        say(f"[{label}] leaf {name}: warm_p50_ms={pct(walls, 0.5):.4f} "
-            f"warm_p90_ms={pct(walls, 0.9):.4f} iters={args.iters} "
-            + " ".join(f"{ph}_p50_ms={pct(v, 0.5):.4f}"
-                       for ph, v in phases.items())
-            + f" staged_bytes_cold={staged_cold} staged_bytes_warm={staged}")
+        row, err = time_request(torch, leaf_mod, st, ex, score_postings,
+                                name, mapper, split_reader, req, dev,
+                                args.iters, flush, label, here)
+        if row is not None:
+            rows.append(row)
+            max_abs_err = max(max_abs_err, err)
 
-        # the kernel at this request's shape
-        if not (ex._posting_space_eligible(plan) and plan.sort.by == "score"
-                and plan.root.scoring):
-            continue
-        root = plan.root
-        ids, tfs = arrays[root.ids_slot], arrays[root.tfs_slot]
-        norms = arrays[root.norm_slot]
-        idf, avg = plan.scalars[root.idf_slot], plan.scalars[root.avg_len_slot]
-        k = min(req.max_hits, ids.shape[0])
-        P = ids.shape[0]
-        before = st.score_topk.launches
-        kernel_ms = cuda_ms(torch, lambda: st.score_topk(
-            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
-        device_ms = graph_ms(torch, lambda: st.score_topk(
-            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
-        st.score_topk.launches = before   # timing launches are not the path's
-        plain_ms = cuda_ms(torch, lambda: st.score_topk_reference(
-            ids, tfs, norms, idf, avg, plan.num_docs, k), args.iters, flush)
-        scores = score_postings(tfs, ids, norms, avg, idf)
-        scores = torch.where((tfs > 0) & (ids < plan.num_docs), scores,
-                             float("-inf"))
-        library_ms = cuda_ms(torch, lambda: torch.topk(scores, k),
-                             args.iters, flush)
-        got = st.score_topk(ids, tfs, norms, idf, avg, plan.num_docs, k)
-        st.score_topk.launches = before
-        want = st.score_topk_reference(ids, tfs, norms, idf, avg,
-                                       plan.num_docs, k)
-        num_valid = int(((tfs > 0) & (ids < plan.num_docs)).sum())
-        err = compare_winners(torch, got, want, num_valid, k)
-        max_abs_err = max(max_abs_err, err)
-        # bytes: ids + tfs + one gathered norm per posting, read once; the
-        # k (f32, i64) winners written once. ops: ~11 f32 ops per posting.
-        nbytes = 12 * P + 12 * k
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = 11 * P / H100_F32_OPS_PER_S * 1e3
-        # the floor the bound does not show: each gathered norm moves its
-        # whole 32-byte sector, so count the distinct sectors this run's
-        # valid postings touch, beside the streamed ids and tfs
-        live = (tfs > 0) & (ids < plan.num_docs)
-        sectors = int(torch.unique(ids[live] // 8).numel())
-        sector_bytes = 8 * P + 32 * sectors + 12 * k
-        sector_ms = sector_bytes / H100_BYTES_PER_S * 1e3
-        say(f"[{label}] kernel score_topk @{name}: P={P} k={k} "
-            f"ms={kernel_ms:.5f} graph_replay_ms={device_ms:.5f} "
-            f"plain_ms={plain_ms:.5f} "
-            f"library_ms(torch.topk)={library_ms:.5f} "
-            f"bound_ms={max(bytes_ms, ops_ms):.6f} "
-            f"(bytes={nbytes}, ops_ms={ops_ms:.6f}) "
-            f"sector_floor_ms={sector_ms:.6f} (bytes={sector_bytes}, "
-            f"achieved_GB_per_s={sector_bytes / device_ms / 1e6:.1f} at "
-            f"graph replay) max_abs_err={err}")
-        rows.append({
-            "at": name, "P": P, "k": k,
-            "ms": kernel_ms, "graph_replay_ms": device_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "sector_floor_ms": sector_ms, "library_ms": library_ms})
+    # 7. phrase over a split file, with the counters zeroed again ----------
+    # the split goes to a temporary directory outside the checkout and is
+    # read back through the resolver's file:// backend
+    so_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_so_")
+    t0 = time.perf_counter()
+    so_data = synthetic_stackoverflow_split(args.so_docs, seed=SO_SEED)
+    so_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    so_storage = StorageResolver.for_test().resolve(f"file://{so_dir.name}")
+    so_storage.put("so.split", so_data)
+    say(f"phrase split: stackoverflow docs={args.so_docs} seed={SO_SEED} "
+        f"bytes={len(so_data)} build_s={so_build_s:.3f} write_s="
+        f"{time.perf_counter() - t0:.3f} storage="
+        f"{type(so_storage).__name__} host_maxrss_mb="
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.0f}")
+    del so_data
+    so_counting = CountingStorage(so_storage)
+
+    def open_so_reader():
+        return SplitReader(so_counting, "so.split")
+
+    time_range = open_so_reader().footer.time_range
+    phrase_reqs = phrase_requests(SearchRequest, FullText, PhrasePrefix, Bool,
+                                  Range, RangeBound, time_range)
+    st.score_topk.launches = 0
+    phrase_out = check_phrase(leaf_mod, st, ex, pruning, SO_MAPPER,
+                              phrase_reqs, open_so_reader,
+                              so_counting.counters, dev)
+    phrase_launches = {"score_topk": st.score_topk.launches}
+    say(f"phrase launches: {json.dumps(phrase_launches)}")
+    if phrase_launches["score_topk"] != 3:   # c4, slop 2 on two readers
+        raise AssertionError("score_topk did not launch once per c4 call")
+
+    so_reader, c4_req, _ = phrase_out["c4_phrase_bm25_top20"]
+    row, err = time_request(torch, leaf_mod, st, ex, score_postings,
+                            "c4_phrase_bm25_top20", SO_MAPPER, so_reader,
+                            c4_req, dev, args.iters, flush, label, here)
+    rows.append(row)
+    max_abs_err = max(max_abs_err, err)
     del flush_buf
+    so_dir.cleanup()
 
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
-        # the slice's flagship and body_top10 calls, and the two
-        # flagship_bucket_metrics calls of the aggregation phase
-        "launches": launches["score_topk"] + agg_launches["score_topk"],
+        # the slice's flagship and body_top10 calls, the two
+        # flagship_bucket_metrics calls of the aggregation phase and the
+        # three c4 calls of the phrase phase
+        "launches": (launches["score_topk"] + agg_launches["score_topk"]
+                     + phrase_launches["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -7,8 +7,12 @@ a hand-written CUDA kernel for Hopper (`csrc/`, built at first use).
 
 Layout mirrors the reference package, so `quickwit_tpu_torch/search/leaf.py`
 is the counterpart of `quickwit_tpu/search/leaf.py`. What is ported so far
-is the single-split leaf search over the posting-space program (a scored or
-filtering single-term query with top-k and bucket-count aggregations).
+is the full single-split leaf search: the posting-space program (the CUDA
+`score_topk` kernel for scored top-k), the doc-space program (Bool and
+range roots, search_after, two-key sorts, threshold pushdown, predicate
+masks), every aggregation, phrase and phrase-prefix queries, the split
+writer and generators, split pruning, and every storage backend (RAM,
+local files, S3, GCS, Azure, with their wrappers and the disk split cache).
 
 Device entry points take `device=None`, which means `cuda`: a call that
 does not name the CPU raises when no GPU is present, it never falls back.

@@ -17,7 +17,7 @@ instrumented primitives that
 - witness the runtime lock-order graph that `tools/qwrace bridge`
   cross-checks against qwlint QW007's static acquisition graph.
 
-Contract (mirrors `common/clock.py`):
+Contract:
 
 - With no runtime installed (production), every factory returns the plain
   `threading.*` object — byte-for-byte the pre-seam behavior, one global

@@ -1,4 +1,4 @@
-"""Fast synthetic hdfs-logs split generation for benchmarks and dry-runs.
+"""Fast synthetic split generation for benchmarks and dry-runs.
 
 Builds hdfs-logs-shaped splits (timestamp + tenant_id + severity_text +
 tokenized body) directly as numpy arrays through `SplitFileBuilder`,
@@ -6,8 +6,10 @@ bypassing the per-document Python writer loop so multi-million-doc splits
 materialize in seconds.
 
 Subset of the JAX package's `index/synthetic.py`: the hdfs-logs generator
-(`synthetic_hdfs_split`, `HDFS_MAPPER`, `body_term`) and the otel-traces
-generator of BASELINE config 5 (`synthetic_otel_split`,
+(`synthetic_hdfs_split`, `HDFS_MAPPER`, `body_term`), the stackoverflow
+generator of BASELINE config 4 (`synthetic_stackoverflow_split`,
+`SO_MAPPER`, `so_term`: positional body postings for phrase queries) and
+the otel-traces generator of BASELINE config 5 (`synthetic_otel_split`,
 `OTEL_BENCH_MAPPER`). For the same `(num_docs, seed)` each writes
 byte-identical split bytes, so both engines can be held against each other
 on one split.
@@ -252,6 +254,129 @@ def _write_body(builder, fields, rng, num_docs, num_docs_padded):
     }
     if impact_meta is not None:
         fields["body"]["impact"] = impact_meta
+
+
+SO_MAPPER = DocMapper(
+    field_mappings=[
+        FieldMapping("creation_date", FieldType.DATETIME, fast=True,
+                     input_formats=("unix_timestamp",)),
+        FieldMapping("body", FieldType.TEXT, record="position"),
+    ],
+    timestamp_field="creation_date",
+    default_search_fields=("body",),
+)
+
+# like the body vocabulary above: sized so phrase search runs against a
+# realistic term dictionary, not a toy one (tokens stay at 12 — the
+# positional (term, doc, position) sort is the generation bottleneck and
+# the >=20-token directive targets the flagship hdfs corpus)
+_SO_VOCAB_SIZE = 50_000
+_SO_TOKENS_PER_DOC = 12
+_SO_TERM_WIDTH = 6
+
+
+def so_term(k: int) -> str:
+    """The k-th stackoverflow vocabulary term (bench queries + tests)."""
+    return f"t{k:0{_SO_TERM_WIDTH}d}"
+
+
+def synthetic_stackoverflow_split(num_docs: int, seed: int = 0,
+                                  start_ts: int = 1_500_000_000
+                                  ) -> bytes:
+    """A stackoverflow-shaped split: positional body postings for BM25
+    phrase queries (BASELINE config #4). Fully vectorized: one zipf draw +
+    one lexicographic sort produce the (term, doc, position) postings."""
+    rng = np.random.RandomState(seed)
+    num_docs_padded = pad_to(num_docs, DOC_PAD)
+    builder = SplitFileBuilder()
+    fields: dict = {}
+
+    ts_seconds = np.sort(rng.randint(0, 90 * 86400, size=num_docs)) + start_ts
+    ts_micros = np.zeros(num_docs_padded, dtype=np.int64)
+    ts_micros[:num_docs] = ts_seconds.astype(np.int64) * 1_000_000
+    present = np.zeros(num_docs_padded, dtype=np.uint8)
+    present[:num_docs] = 1
+    builder.add_array("col.creation_date.values", ts_micros)
+    builder.add_array("col.creation_date.present", present)
+    fields["creation_date"] = {
+        "type": "datetime", "fast": True, "column_kind": "numeric",
+        "min_value": int(ts_micros[0]),
+        "max_value": int(ts_micros[num_docs - 1]),
+    }
+
+    vocab = [so_term(k) for k in range(_SO_VOCAB_SIZE)]
+    length = _SO_TOKENS_PER_DOC
+    draws = rng.zipf(1.4, size=num_docs * length) - 1
+    flat_terms = np.minimum(draws, _SO_VOCAB_SIZE - 1).astype(np.int64)
+    flat_docs = np.repeat(np.arange(num_docs, dtype=np.int64), length)
+    flat_pos = np.tile(np.arange(length, dtype=np.int64), num_docs)
+    # sort by (term, doc, position): groups become term postings with
+    # each (term, doc) pair's positions contiguous and ascending
+    order = np.argsort(flat_terms * (num_docs * length)
+                       + flat_docs * length + flat_pos, kind="stable")
+    terms_s = flat_terms[order]
+    docs_s = flat_docs[order]
+    pos_s = flat_pos[order].astype(np.int32)
+    pair_key = terms_s * num_docs + docs_s
+    boundary = np.concatenate([[True], pair_key[1:] != pair_key[:-1]])
+    pair_starts = np.nonzero(boundary)[0]
+    pair_terms = terms_s[pair_starts]
+    pair_docs = docs_s[pair_starts].astype(np.int32)
+    pair_tfs = np.diff(np.append(pair_starts, len(pair_key))).astype(np.int32)
+
+    starts = np.searchsorted(pair_terms, np.arange(_SO_VOCAB_SIZE))
+    ends = np.searchsorted(pair_terms, np.arange(_SO_VOCAB_SIZE),
+                           side="right")
+    dfs = (ends - starts).astype(np.int32)
+    post_lens = np.array([pad_to(max(int(d), 1), POSTING_PAD) for d in dfs],
+                         dtype=np.int32)
+    post_offs = np.zeros(_SO_VOCAB_SIZE, dtype=np.int64)
+    np.cumsum(post_lens[:-1], out=post_offs[1:])
+    total = int(post_lens.sum())
+    ids_arena = np.full(total, num_docs_padded, dtype=np.int32)
+    tfs_arena = np.zeros(total, dtype=np.int32)
+    ranks = np.arange(len(pair_terms), dtype=np.int64) - starts[pair_terms]
+    slots = post_offs[pair_terms] + ranks
+    ids_arena[slots] = pair_docs
+    tfs_arena[slots] = pair_tfs
+    # positions arena: offsets indexed by posting slot; data rides the
+    # (term, doc, position) sort order directly
+    pos_counts = np.zeros(total, dtype=np.int64)
+    pos_counts[slots] = pair_tfs
+    pos_offsets = np.zeros(total + 1, dtype=np.int64)
+    np.cumsum(pos_counts, out=pos_offsets[1:])
+
+    term_offsets = (np.arange(_SO_VOCAB_SIZE + 1, dtype=np.int64)
+                    * len(so_term(0)))
+    builder.add_array("inv.body.terms.blob",
+                      np.frombuffer("".join(vocab).encode(), dtype=np.uint8))
+    builder.add_array("inv.body.terms.offsets", term_offsets)
+    builder.add_array("inv.body.terms.df", dfs)
+    builder.add_array("inv.body.terms.post_off", post_offs)
+    builder.add_array("inv.body.terms.post_len", post_lens)
+    builder.add_array("inv.body.postings.ids", ids_arena)
+    builder.add_array("inv.body.postings.tfs", tfs_arena)
+    builder.add_array("inv.body.positions.offsets", pos_offsets)
+    builder.add_array("inv.body.positions.data", pos_s)
+    norms = np.zeros(num_docs_padded, dtype=np.int32)
+    norms[:num_docs] = length
+    builder.add_array("inv.body.fieldnorm", norms)
+    fields["body"] = {
+        "type": "text", "tokenizer": "default", "record": "position",
+        "indexed": True, "num_terms": _SO_VOCAB_SIZE,
+        "total_tokens": num_docs * length, "avg_len": float(length),
+    }
+
+    builder.add_array("store.data", np.zeros(0, dtype=np.uint8))
+    builder.add_array("store.block_offsets", np.array([0], dtype=np.int64))
+    builder.add_array("store.block_first_doc", np.array([0], dtype=np.int32))
+    footer = SplitFooter(
+        num_docs=num_docs, num_docs_padded=num_docs_padded, arrays={},
+        fields=fields,
+        time_range=(int(ts_micros[0]), int(ts_micros[num_docs - 1])),
+        extra={"synthetic": True},
+    )
+    return builder.finish(footer)
 
 
 OTEL_BENCH_MAPPER = DocMapper(

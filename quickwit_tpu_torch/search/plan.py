@@ -22,7 +22,9 @@ complete set of buffers the kernel needs in device memory.
 Carried over whole from the JAX package's `search/plan.py` (host numpy
 only): `idf` comes from this package's `ops/bm25.py`, `RateLimitedLog` is a
 local copy, and the impact prefix cutoff keeps its arithmetic but drops
-the profile/metrics counters this package does not have.
+its per-query profile and metrics counters. A phrase's precomputed arrays
+carry the slop in their staging key (the JAX package keys them by the terms
+alone, so a sloppy phrase there can reuse the exact phrase's postings).
 """
 
 from __future__ import annotations
@@ -920,6 +922,12 @@ class Lowering:
         ids, freqs = phrase_match(postings, positions, [i.df for i in infos],
                                   slop, term_keys=terms)
         key = f"{field}.phrase." + ".".join(str(i.ordinal) for i in infos)
+        if slop > 0:
+            # the matches depend on the slop: without it in the staging key
+            # a sloppy phrase after the exact one of the same terms would
+            # score the exact phrase's staged postings (the JAX package
+            # keys them by the terms alone)
+            key += f".slop{slop}"
         return self._precomputed_node(key, ids, freqs, field, scoring, boost,
                                       df_for_idf=ids.size)
 

@@ -5,10 +5,6 @@ trait: byte-addressed object storage under a base URI with put / get_slice /
 get_all / delete / bulk_delete / file_num_bytes / exists, resolved from a URI
 by a `StorageResolver`. Splits, metastore files and WAL snapshots all live
 behind this seam, which is what keeps searchers stateless.
-
-Subset of the JAX package's `storage/base.py`: the resolver registers the
-in-memory `ram://` backend only; the file and object-store backends are not
-carried over yet.
 """
 
 from __future__ import annotations
@@ -108,12 +104,38 @@ class StorageResolver:
 
     @staticmethod
     def for_test() -> "StorageResolver":
+        from .local import LocalFileStorage
         from .ram import RamStorage
+        from .s3 import S3CompatibleStorage
         resolver = StorageResolver()
+        resolver.register(Protocol.FILE, LocalFileStorage)
         _ram_root = RamStorage(Uri.parse("ram:///"))
         resolver.register(Protocol.RAM, lambda uri: _ram_root.subdir(uri))
+        # env-configured (QW_S3_ENDPOINT / AWS_*); hedged ranged reads by
+        # default — S3's tail latency is the reason the wrapper exists
+        resolver.register(Protocol.S3, _make_s3_storage)
+        resolver.register(Protocol.AZURE, _make_azure_storage)
+        resolver.register(Protocol.GCS, _make_gcs_storage)
         return resolver
 
     @staticmethod
     def default() -> "StorageResolver":
         return StorageResolver.for_test()
+
+
+def _make_s3_storage(uri: Uri) -> Storage:
+    from .s3 import S3CompatibleStorage, S3Config
+    from .wrappers import TimeoutAndRetryStorage
+    return TimeoutAndRetryStorage(S3CompatibleStorage(uri, S3Config.from_env()))
+
+
+def _make_azure_storage(uri: Uri) -> Storage:
+    from .azure import AzureBlobStorage
+    from .wrappers import TimeoutAndRetryStorage
+    return TimeoutAndRetryStorage(AzureBlobStorage(uri))
+
+
+def _make_gcs_storage(uri: Uri) -> Storage:
+    from .gcs import GcsStorage
+    from .wrappers import TimeoutAndRetryStorage
+    return TimeoutAndRetryStorage(GcsStorage(uri))

@@ -16,11 +16,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from quickwit_tpu_torch.common.uri import Uri
 from quickwit_tpu_torch.index.reader import SplitReader
 from quickwit_tpu_torch.index.synthetic import (
-    HDFS_MAPPER, body_term, synthetic_hdfs_split)
+    HDFS_MAPPER, SO_MAPPER, body_term, synthetic_hdfs_split,
+    synthetic_stackoverflow_split)
 from quickwit_tpu_torch.ops import masks, topk
 from quickwit_tpu_torch.ops.kernels.score_topk import (
     score_topk, score_topk_reference)
-from quickwit_tpu_torch.query.ast import Bool, Range, RangeBound, Term
+from quickwit_tpu_torch.query.ast import (
+    Bool, FullText, Range, RangeBound, Term)
 from quickwit_tpu_torch.search import executor
 from quickwit_tpu_torch.search.executor import _widened
 from quickwit_tpu_torch.search.plan import lower_request
@@ -228,6 +230,43 @@ def test_leaf_on_cuda_matches_cpu(cuda_device, num_docs):
                     assert np.array_equal(value, other)
                 else:
                     assert value == other
+
+
+@pytest.mark.gpu
+def test_phrase_leaf_on_cuda_matches_cpu(cuda_device):
+    """c4 (a scoring precomputed phrase root: one score_topk launch) and c4
+    at slop 2 on the same reader, each equal to the CPU run; slop 2 after
+    slop 0 equals slop 2 on a fresh reader."""
+    data = synthetic_stackoverflow_split(20_000, seed=11)
+
+    def reader():
+        storage = RamStorage(Uri.parse("ram:///cuda-so"))
+        storage.put("so.split", data)
+        return SplitReader(storage, "so.split")
+
+    def request(slop):
+        return SearchRequest(index_ids=["so"], max_hits=20, query_ast=FullText(
+            "body", "t000010 t000011", mode="phrase", slop=slop))
+
+    def key(resp):
+        return resp.num_hits, [(h.doc_id, h.sort_value)
+                               for h in resp.partial_hits]
+
+    gpu_reader, cpu_reader = reader(), reader()
+    got = {}
+    for slop in (0, 2):
+        before = score_topk.launches
+        gpu = leaf_search_single_split(request(slop), SO_MAPPER, gpu_reader,
+                                       "so", device=cuda_device)
+        assert score_topk.launches == before + 1
+        cpu = leaf_search_single_split(request(slop), SO_MAPPER, cpu_reader,
+                                       "so", device="cpu")
+        assert key(gpu) == key(cpu) and gpu.num_hits > 0
+        got[slop] = key(gpu)
+    fresh = leaf_search_single_split(request(2), SO_MAPPER, reader(), "so",
+                                     device=cuda_device)
+    assert key(fresh) == got[2] != got[0]
+    assert (got[0][0], got[2][0]) == (27, 96)
 
 
 # --- doc space: each op on the card equals the same op on the CPU ------------
