@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's single-split leaf search on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's leaf search and its service on one NVIDIA GPU.
 
     python3 chip_smoke.py [--docs N] [--so-docs N] [--iters N]
 
@@ -91,6 +91,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               hits), none of which may launch score_topk.
             Each response must equal the port's `device="cpu"` run on the
             same reader, with num_hits > 0. Then c4 is timed as in phase 6.
+8. service: the node's `SearchService.leaf_search` on `cuda`, with the
+            counters zeroed again. Phase 3's split bytes go into its RAM
+            storage under two split ids (hdfs_a, hdfs_b: one bytes object)
+            behind a `StorageResolver`. The flagship, c2_bool_range_top100,
+            c2 sorted by timestamp (top-100) and a dashboard request (c2's
+            filter, max_hits=0, the flagship's terms and date_histogram)
+            run over both splits, each equal to a `device="cpu"` context
+            over the same resolver, with num_hits > 0; the flagship
+            launches score_topk once per split. Then, each failing the run
+            when it does not hold:
+            - warm: the flagship and c2 at another page size (a leaf-cache
+              miss) are full resident hits in both splits (staging cache
+              hits +2, column misses +0, 0 bytes staged); the same on a
+              context whose one-slot reader LRU reopens every reader;
+            - Tier A: c2 by timestamp at a new page size is a mask hit in
+              both splits with 0 predicate bytes staged, equal to its run
+              on a context with every tier off;
+            - Tier B: the dashboard's aggregations renamed are served by
+              the partial-agg cache: no score_topk launch and no device
+              event in a profiler window (a warm flagship call in the same
+              kind of window shows the card's events);
+            - Tier C: a byte-identical flagship repeat is a leaf-cache hit
+              with no launch and no device event;
+            - eviction: under a budget of 1.5 times one split's resident
+              bytes (read from a probe context), the flagship alternates
+              between the splits for two passes, equal to the unpressured
+              context; at every eviction `torch.cuda.memory_allocated()`
+              falls by at least the evicted bytes.
+            It prints the budget's resident bytes beside the growth of
+            `memory_allocated()` over the cold pass, warm p50/p90 of the
+            service call over one split (the leaf cache off) in turns with
+            `leaf_search_single_split` on the same reader and beside phase
+            6's times, and the mean time of the service call's parts.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -101,6 +134,8 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import resource
@@ -373,7 +408,7 @@ def run_split(leaf, mapper, req, reader, dev, threshold=None, mask=None):
                                      "mask_key": "mask.c2"}
     plan = leaf.prepare_plan_only(req, mapper, reader, "split-0",
                                   sort_value_threshold=threshold, **extra)
-    arrays, _ = leaf.warmup_device_arrays(reader, plan, dev)
+    arrays, _, _ = leaf.warmup_device_arrays(reader, plan, device=dev)
     return plan, leaf.execute_prepared_split(
         req, mapper, reader, "split-0", plan, arrays, dev)
 
@@ -434,9 +469,11 @@ def check_doc_space(leaf, ex, mapper, reqs, body_req, body_resp, aggs,
     c2_plan = leaf.prepare_plan_only(reqs["c2_bool_range_top100"], mapper,
                                      reader, "split-0")
     host_mask, dev_mask = ex.compute_packed_mask(
-        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, dev)[0], dev)
+        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, device=dev)[0],
+        dev)
     cpu_mask, _ = ex.compute_packed_mask(
-        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, "cpu")[0], "cpu")
+        c2_plan, leaf.warmup_device_arrays(reader, c2_plan, device="cpu")[0],
+        "cpu")
     set_bits = int(np.unpackbits(host_mask).sum())
     if dev_mask.device.type != torch.device(dev).type or not (
             host_mask == cpu_mask).all():
@@ -938,13 +975,15 @@ def summarize_trace(trace: dict, calls: int, wall_us: float) -> str:
 
 
 def time_request(torch, leaf, st, ex, score_postings, name, mapper,
-                 split_reader, req, dev, iters, flush, label, here):
+                 split_reader, req, dev, iters, flush, label, here,
+                 leaf_times=None):
     """Phase 6's timing of one request: warm p50/p90 of the leaf call and of its
     phases, a profiler window, and, for a scored posting-space plan, the
-    kernel at the request's shape. Returns (kernel row or None, the
+    kernel at the request's shape. Records the leaf call's (p50, p90) ms
+    in `leaf_times[name]` when given. Returns (kernel row or None, the
     kernel's max abs error against its plain version)."""
     plan = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
-    arrays, _ = leaf.warmup_device_arrays(split_reader, plan, dev)
+    arrays, _, _ = leaf.warmup_device_arrays(split_reader, plan, device=dev)
     # the whole leaf call, warm (arrays resident), host clock; the call
     # ends in the packed readback, which synchronizes
     walls, phases = [], {"plan": [], "stage": [], "execute": []}
@@ -956,7 +995,8 @@ def time_request(torch, leaf, st, ex, score_postings, name, mapper,
         t0 = time.perf_counter()
         p = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
         t1 = time.perf_counter()
-        a, staged = leaf.warmup_device_arrays(split_reader, p, dev)
+        a, staged, _ = leaf.warmup_device_arrays(split_reader, p,
+                                                 device=dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         leaf.execute_prepared_split(req, mapper, split_reader, "split-0",
@@ -972,6 +1012,8 @@ def time_request(torch, leaf, st, ex, score_postings, name, mapper,
         os.path.join(here, "chip_traces", f"trace_{name}.json"))
     say(f"[{label}] profile {name}: {summary}")
     staged_cold = sum(arr.nbytes for arr in plan.arrays)
+    if leaf_times is not None:
+        leaf_times[name] = (pct(walls, 0.5), pct(walls, 0.9))
     say(f"[{label}] leaf {name}: warm_p50_ms={pct(walls, 0.5):.4f} "
         f"warm_p90_ms={pct(walls, 0.9):.4f} iters={iters} "
         + " ".join(f"{ph}_p50_ms={pct(v, 0.5):.4f}"
@@ -1037,6 +1079,342 @@ def time_request(torch, leaf, st, ex, score_postings, name, mapper,
         "sector_floor_ms": sector_ms, "library_ms": library_ms}, err
 
 
+# --------------------------------------------------------------------------
+# phase 8: the node's search service
+
+def count_device_events(torch, fn, out_path: str) -> int:
+    """Kernels, copies and fills the card ran in a profiler window around
+    `fn` (its Chrome trace goes to `out_path`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(out_path)
+    with open(out_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return sum(1 for ev in events if ev.get("ph") == "X" and ev.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def host_breakdown(svc_mod, call, iters: int) -> str:
+    """Mean ms per call of a service call's parts over `iters` warm calls:
+    what the leaf call does too (lowering, the staging lookup, the program
+    and its readback) and what only the service does (named here, and the
+    rest). The parts are timed by wrapping the functions the service calls
+    for the length of this measurement only."""
+    parts = {"prepare_plan_only": (svc_mod, "prepare_plan_only"),
+             "warmup_device_arrays": (svc_mod, "warmup_device_arrays"),
+             "execute_prepared_split": (svc_mod, "execute_prepared_split"),
+             "leaf_cache_put": (svc_mod.LeafSearchCache, "put"),
+             "canonical_request_key": (svc_mod, "canonical_request_key"),
+             "doc_mapper_from_dict": (svc_mod.DocMapper, "from_dict"),
+             "collector_add": (svc_mod.IncrementalCollector,
+                               "add_leaf_response")}
+    spent = dict.fromkeys(parts, 0.0)
+    saved = {part: vars(owner)[attr] for part, (owner, attr) in parts.items()}
+
+    def timed(part, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return wrapper
+
+    for part, (owner, attr) in parts.items():
+        setattr(owner, attr, timed(part, getattr(owner, attr)))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        total = time.perf_counter() - t0
+    finally:
+        for part, (owner, attr) in parts.items():
+            setattr(owner, attr, saved[part])
+    out = {part: round(sec / iters * 1e3, 4) for part, sec in spent.items()}
+    out["rest"] = round((total - sum(spent.values())) / iters * 1e3, 4)
+    return f"total={total / iters * 1e3:.4f} " + json.dumps(out)
+
+
+def check_service(torch, st, mods, storage, num_docs, reqs, dev, iters,
+                  label, here, leaf_times) -> None:
+    """Phase 8: `SearchService.leaf_search` on `cuda` over two split ids of
+    phase 3's split, each response against a cpu context over the same
+    resolver, with the warm, reopen, Tier A/B/C and eviction checks, then
+    the service's warm timing."""
+    import dataclasses
+    svc_mod, leaf_mod, models, metrics, residency, admission, Protocol, \
+        StorageResolver, HDFS_MAPPER = mods
+    data = storage.get_all("hdfs.split")
+    split_ids = ("hdfs_a", "hdfs_b")
+    for split_id in split_ids:          # the same bytes object, no rebuild
+        storage.put(f"{split_id}.split", data)
+    resolver = StorageResolver()
+    resolver.register(Protocol.RAM, lambda _uri: storage)
+    splits = [models.SplitIdAndFooter(split_id, "ram:///chip_smoke",
+                                      len(data), num_docs=num_docs)
+              for split_id in split_ids]
+    del data
+
+    def context(device, **kw):
+        ctx = svc_mod.SearcherContext(storage_resolver=resolver,
+                                      device=device, **kw)
+        return svc_mod.SearchService(ctx), ctx
+
+    def leaf(service, req, on=splits):
+        resp = service.leaf_search(models.LeafSearchRequest(
+            search_request=req, index_uid="hdfs-logs:0",
+            doc_mapping=HDFS_MAPPER.to_dict(), splits=list(on)))
+        if resp.failed_splits:
+            raise AssertionError(f"service: failed splits "
+                                 f"{resp.failed_splits}")
+        return resp
+
+    def counter(name):
+        return getattr(metrics, name).get()
+
+    gpu, gpu_ctx = context(dev)
+    cpu, _ = context("cpu")
+    cold_gpu, _ = context(dev, resident_columns=False, leaf_cache_bytes=0,
+                          enable_mask_cache=False, enable_agg_cache=False)
+
+    def against_cpu(name, req, got):
+        want = leaf(cpu, req)
+        if response_key(got) != response_key(want):
+            raise AssertionError(f"service {name}: cuda response differs "
+                                 f"from the cpu context's")
+        if got.num_hits <= 0:
+            raise AssertionError(f"service {name}: no hits")
+        return want
+
+    # cold: every request once on cuda, each against the cpu context
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated(dev)
+    staged0 = counter("STAGING_BYTES_TOTAL")
+    launches = {}
+    cold = {}
+    for name, req in reqs.items():
+        before = st.score_topk.launches
+        cold[name] = leaf(gpu, req)
+        launches[name] = st.score_topk.launches - before
+        against_cpu(name, req, cold[name])
+    torch.cuda.synchronize()
+    staged_cold = counter("STAGING_BYTES_TOTAL") - staged0
+    delta = torch.cuda.memory_allocated(dev) - allocated0
+    resident = gpu_ctx.hbm_budget.stats()["resident"]
+    store_bytes = gpu_ctx.resident_store.stats()["bytes"]
+    say(f"[{label}] service cold: num_hits="
+        f"{json.dumps({n: r.num_hits for n, r in cold.items()})} "
+        f"score_topk_launches={json.dumps(launches)} "
+        f"staged_bytes_cold={staged_cold:.0f} budget_resident_bytes="
+        f"{resident} store_bytes={store_bytes} (the seeded masks ride "
+        f"outside admission) memory_allocated_delta={delta} "
+        f"slack_bytes={delta - store_bytes} equal_to_cpu=True")
+    if launches != {"flagship": len(splits), "c2_bool_range_top100": 0,
+                    "c2_by_timestamp": 0, "c2_dashboard": 0}:
+        raise AssertionError(f"service: score_topk launches {launches}")
+
+    # warm repeat at another page size: leaf-cache miss, resident columns
+    def warm_check(service, tag):
+        for name, max_hits in (("flagship", 7), ("c2_bool_range_top100", 50)):
+            req = dataclasses.replace(reqs[name], max_hits=max_hits)
+            hits0 = counter("RESIDENT_STAGING_CACHE_HITS")
+            miss0 = counter("RESIDENT_COLUMN_MISSES")
+            staged = counter("STAGING_BYTES_TOTAL")
+            got = leaf(service, req)
+            d_hits = counter("RESIDENT_STAGING_CACHE_HITS") - hits0
+            d_miss = counter("RESIDENT_COLUMN_MISSES") - miss0
+            d_staged = counter("STAGING_BYTES_TOTAL") - staged
+            against_cpu(f"{name} {tag}", req, got)
+            if hit_key(got) != hit_key(cold[name])[:max_hits] or \
+                    got.num_hits != cold[name].num_hits:
+                raise AssertionError(f"service {name} {tag}: hits differ "
+                                     f"from the cold run's")
+            say(f"[{label}] service {tag} {name}: max_hits={max_hits} "
+                f"staging_cache_hits=+{d_hits:.0f} column_misses=+"
+                f"{d_miss:.0f} staged_bytes_warm={d_staged:.0f} "
+                f"equal_to_cpu=True")
+            if d_hits != len(splits) or d_miss != 0 or d_staged != 0:
+                raise AssertionError(f"service {name} {tag}: the warm call "
+                                     f"staged columns")
+
+    warm_check(gpu, "warm")
+    reopen, _ = context(dev, max_open_splits=1)
+    leaf(reopen, reqs["flagship"])
+    leaf(reopen, reqs["c2_bool_range_top100"])
+    warm_check(reopen, "reopen")
+    del reopen
+
+    # Tier A: c2's filter by timestamp at a new page size is a mask hit
+    req = dataclasses.replace(reqs["c2_by_timestamp"], max_hits=50)
+    hits0 = counter("MASK_CACHE_HITS_TOTAL")
+    pred0 = counter("PREDICATE_STAGED_BYTES_TOTAL")
+    got = leaf(gpu, req)
+    d_hits = counter("MASK_CACHE_HITS_TOTAL") - hits0
+    d_pred = counter("PREDICATE_STAGED_BYTES_TOTAL") - pred0
+    against_cpu("tier_a", req, got)
+    if response_key(got) != response_key(leaf(cold_gpu, req)):
+        raise AssertionError("service tier_a: differs from its cold run")
+    say(f"[{label}] service tier_a c2_by_timestamp: max_hits=50 "
+        f"mask_hits=+{d_hits:.0f} predicate_staged_bytes=+{d_pred:.0f} "
+        f"equal_to_cold_and_cpu=True")
+    if d_hits != len(splits) or d_pred != 0:
+        raise AssertionError("service tier_a: not a zero-staging mask hit")
+
+    # Tier B: the dashboard's aggregations renamed (a leaf-cache miss)
+    # come from the partial-agg cache alone
+    served = []
+    serve = gpu._serve_from_agg_cache
+
+    def counting_serve(request, split):
+        out = serve(request, split)
+        served.append(out is not None)
+        return out
+
+    gpu._serve_from_agg_cache = counting_serve
+    dash = reqs["c2_dashboard"]
+    req = dataclasses.replace(dash, aggs={f"panel_{k}": v
+                                          for k, v in dash.aggs.items()})
+    before = st.score_topk.launches
+    out = {}
+    events = count_device_events(
+        torch, lambda: out.setdefault("r", leaf(gpu, req)),
+        os.path.join(here, "chip_traces", "trace_service_tier_b.json"))
+    tier_b_launches = st.score_topk.launches - before
+    del gpu._serve_from_agg_cache
+    against_cpu("tier_b", req, out["r"])
+    # the window sees the card when it works: a warm call with a program
+    control = count_device_events(
+        torch, lambda: leaf(gpu, dataclasses.replace(reqs["flagship"],
+                                                     max_hits=9)),
+        os.path.join(here, "chip_traces", "trace_service_control.json"))
+    say(f"[{label}] service tier_b c2_dashboard renamed: "
+        f"served_from_agg_cache={served} score_topk_launches="
+        f"{tier_b_launches} device_events={events} (a warm flagship call "
+        f"in the same window: {control}) equal_to_cpu=True")
+    if served != [True] * len(splits) or tier_b_launches or events or \
+            control <= 0:
+        raise AssertionError("service tier_b: not served by the partial-agg "
+                             "cache without the card")
+
+    # Tier C: a byte-identical repeat of the flagship
+    hits0 = counter("LEAF_CACHE_HITS_TOTAL")
+    before = st.score_topk.launches
+    out = {}
+    events = count_device_events(
+        torch, lambda: out.setdefault("r", leaf(gpu, reqs["flagship"])),
+        os.path.join(here, "chip_traces", "trace_service_tier_c.json"))
+    d_hits = counter("LEAF_CACHE_HITS_TOTAL") - hits0
+    tier_c_launches = st.score_topk.launches - before
+    if response_key(out["r"]) != response_key(cold["flagship"]):
+        raise AssertionError("service tier_c: differs from the cold run")
+    say(f"[{label}] service tier_c flagship repeat: leaf_cache_hits=+"
+        f"{d_hits:.0f} score_topk_launches={tier_c_launches} "
+        f"device_events={events} equal_to_cold=True")
+    if d_hits != len(splits) or tier_c_launches or events:
+        raise AssertionError("service tier_c: not a leaf-cache hit")
+
+    # eviction under a budget of 1.5 splits, alternating the splits
+    no_tiers = dict(leaf_cache_bytes=0, enable_mask_cache=False,
+                    enable_agg_cache=False)
+    probe, probe_ctx = context(dev, **no_tiers)
+    leaf(probe, reqs["flagship"], splits[:1])
+    per_split = probe_ctx.hbm_budget.stats()["resident"]
+    del probe, probe_ctx
+    pressured, p_ctx = context(dev, **no_tiers)
+    p_ctx.hbm_budget = admission.HbmBudget(budget_bytes=int(1.5 * per_split))
+    drops = []
+    clear = residency._NotifyingCache.clear
+
+    def measured_clear(cache):
+        held = p_ctx.resident_store.stats()["by_split"].get(
+            cache._split_id, 0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        clear(cache)
+        drops.append((cache._split_id, held,
+                      before - torch.cuda.memory_allocated(dev)))
+
+    evictions0 = counter("RESIDENT_EVICTIONS")
+    residency._NotifyingCache.clear = measured_clear
+    try:
+        for _ in range(2):
+            for split in splits:
+                got = leaf(pressured, reqs["flagship"], [split])
+                want = leaf(gpu, reqs["flagship"], [split])
+                if response_key(got) != response_key(want):
+                    raise AssertionError("service eviction: differs from "
+                                         "the unpressured context")
+    finally:
+        residency._NotifyingCache.clear = clear
+    evictions = counter("RESIDENT_EVICTIONS") - evictions0
+    say(f"[{label}] service eviction: per_split_bytes={per_split} budget="
+        f"{int(1.5 * per_split)} evictions=+{evictions:.0f} "
+        f"(split, evicted_bytes, memory_allocated_drop)={json.dumps(drops)} "
+        f"equal_to_unpressured=True")
+    if evictions <= 0 or not drops or any(
+            held <= 0 or freed < held for _, held, freed in drops):
+        raise AssertionError("service eviction: memory_allocated did not "
+                             "fall by the evicted bytes")
+    del pressured, p_ctx
+
+    # timing: warm calls over one split, the leaf cache off, in turns with
+    # leaf_search_single_split on the same reader (its own per-reader
+    # arrays), beside phase 6's times of the leaf call. Its launches are
+    # not the path's: they are counted apart, and the count is put back.
+    path_launches = st.score_topk.launches
+    single_launches = 0
+    for tiers, kw in (("tiers_a_b_on", {"leaf_cache_bytes": 0}),
+                      ("all_tiers_off", no_tiers)):
+        timed, timed_ctx = context(dev, **kw)
+        reader = timed_ctx.reader(splits[0])
+        for name in ("flagship", "c2_bool_range_top100"):
+            def single():
+                nonlocal single_launches
+                before = st.score_topk.launches
+                out = leaf_mod.leaf_search_single_split(
+                    reqs[name], HDFS_MAPPER, reader, splits[0].split_id,
+                    device=dev)
+                single_launches += st.score_topk.launches - before
+                return out
+            leaf(timed, reqs[name], splits[:1])
+            single()
+            walls, single_walls = [], []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                leaf(timed, reqs[name], splits[:1])
+                t1 = time.perf_counter()
+                single()
+                walls.append((t1 - t0) * 1e3)
+                single_walls.append((time.perf_counter() - t1) * 1e3)
+            p50, p90 = leaf_times.get(name, (float("nan"),) * 2)
+            say(f"[{label}] service timing {name} ({tiers}, one split): "
+                f"warm_p50_ms={pct(walls, 0.5):.4f} warm_p90_ms="
+                f"{pct(walls, 0.9):.4f} iters={iters}; in turns, "
+                f"leaf_search_single_split warm_p50_ms="
+                f"{pct(single_walls, 0.5):.4f} warm_p90_ms="
+                f"{pct(single_walls, 0.9):.4f}; phase 6 "
+                f"leaf_search_single_split warm_p50_ms={p50:.4f} "
+                f"warm_p90_ms={p90:.4f}")
+            if tiers == "all_tiers_off":
+                say(f"[{label}] service host breakdown {name} (one split, "
+                    f"mean ms per call): " + host_breakdown(
+                        svc_mod, lambda: leaf(timed, reqs[name], splits[:1]),
+                        iters))
+        del timed
+    timing_launches = st.score_topk.launches - path_launches
+    say(f"[{label}] service timing launches (not the path's): "
+        f"service_calls={timing_launches - single_launches} "
+        f"leaf_search_single_split_calls={single_launches}")
+    st.score_topk.launches = path_launches
+    for split_id in split_ids:
+        storage.delete(f"{split_id}.split")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -1076,6 +1454,11 @@ def main(argv=None) -> int:
     from quickwit_tpu_torch.search import pruning
     from quickwit_tpu_torch.search.models import SearchRequest, SortField
     from quickwit_tpu_torch.storage import CountingStorage, StorageResolver
+    from quickwit_tpu_torch.common.uri import Protocol
+    from quickwit_tpu_torch.observability import metrics
+    from quickwit_tpu_torch.search import admission, residency
+    from quickwit_tpu_torch.search import models as search_models
+    from quickwit_tpu_torch.search import service as svc_mod
     from quickwit_tpu_torch.storage.ram import RamStorage
 
     dev = torch.device("cuda", 0)
@@ -1195,6 +1578,7 @@ def main(argv=None) -> int:
         flush_buf.zero_()
 
     rows = []
+    leaf_times = {}
     timed = {name: (HDFS_MAPPER, reader, req)
              for name, req in requests.items()}
     timed["c2_bool_range_top100"] = (HDFS_MAPPER, reader,
@@ -1205,7 +1589,7 @@ def main(argv=None) -> int:
     for name, (mapper, split_reader, req) in timed.items():
         row, err = time_request(torch, leaf_mod, st, ex, score_postings,
                                 name, mapper, split_reader, req, dev,
-                                args.iters, flush, label, here)
+                                args.iters, flush, label, here, leaf_times)
         if row is not None:
             rows.append(row)
             max_abs_err = max(max_abs_err, err)
@@ -1252,16 +1636,41 @@ def main(argv=None) -> int:
     del flush_buf
     so_dir.cleanup()
 
+    # 8. the node's search service, with the counters zeroed again --------
+    service_reqs = {
+        "flagship": requests["flagship"],
+        "c2_bool_range_top100": doc_reqs["c2_bool_range_top100"],
+        "c2_by_timestamp": doc_reqs["c2_by_timestamp"],
+        "c2_dashboard": dataclasses.replace(
+            doc_reqs["c2_bool_range_top100"], max_hits=0,
+            aggs=requests["flagship"].aggs),
+    }
+    t0 = time.perf_counter()
+    st.score_topk.launches = 0
+    check_service(torch, st, (svc_mod, leaf_mod, search_models, metrics,
+                              residency, admission, Protocol,
+                              StorageResolver, HDFS_MAPPER),
+                  storage, args.docs, service_reqs, dev, args.iters, label,
+                  here, leaf_times)
+    service_launches = {"score_topk": st.score_topk.launches}
+    say(f"service launches: {json.dumps(service_launches)} phase_s="
+        f"{time.perf_counter() - t0:.3f}")
+    if service_launches["score_topk"] < 1:
+        raise AssertionError("score_topk never launched on the service path")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
         # the slice's flagship and body_top10 calls, the two
-        # flagship_bucket_metrics calls of the aggregation phase and the
-        # three c4 calls of the phrase phase
+        # flagship_bucket_metrics calls of the aggregation phase, the
+        # three c4 calls of the phrase phase and the service phase's
+        # flagship calls before its timing (one per split of each call
+        # that runs a program)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
-                     + phrase_launches["score_topk"]),
+                     + phrase_launches["score_topk"]
+                     + service_launches["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -3,9 +3,11 @@
 Role of the reference's `quickwit-dst` time virtualization: deadline reads
 and retry sleeps (`common/deadline.py`) go through the process clock that
 `get_clock()` returns, so a test harness can later install a virtual one
-without touching its callers. The port ships only the real clock; the
-settable, scaled and fake clocks and the RNG seam come with the cluster
-modules that need them.
+without touching its callers; `monotonic()` is the drop-in for
+`time.monotonic()` on those paths (HBM admission's flight events, the
+overload controller, token buckets). The port ships only the real clock;
+the settable, scaled and fake clocks and the RNG seam come with the
+cluster modules that need them.
 """
 
 from __future__ import annotations
@@ -59,3 +61,8 @@ _SYSTEM_CLOCK = SystemClock()
 
 def get_clock() -> Clock:
     return _SYSTEM_CLOCK
+
+
+def monotonic() -> float:
+    """Shorthand for `get_clock().monotonic()`."""
+    return get_clock().monotonic()

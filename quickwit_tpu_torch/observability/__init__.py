@@ -1,3 +1,3 @@
-from .metrics import Counter, MetricsRegistry, METRICS
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry, METRICS
 
-__all__ = ["Counter", "MetricsRegistry", "METRICS"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "METRICS"]

@@ -1,16 +1,22 @@
 """Prometheus-style metrics registry.
 
 Role of the reference's `quickwit-metrics` macro registry
-(`quickwit-metrics/src/lib.rs:44-343`): lazily-registered counters with
-labels, exposed in Prometheus text format. The port registers only what its
-modules bump: the predicate-cache counters below and the split cache's
-counters (`storage/split_cache.py`). Gauges, histograms and the other
-subsystems' counters come with the modules that use them.
+(`quickwit-metrics/src/lib.rs:44-343`): lazily-registered counters, gauges
+and histograms with labels, exposed in Prometheus text format. The port
+registers what its modules read: the leaf and node search service, HBM
+admission and the resident column store, the three cache tiers, tenancy,
+fault injection and the flight recorder (and, in their own modules, the
+split cache's counters). Other subsystems' metrics come with them.
 """
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_right
+from typing import Optional, Sequence
+
+DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                   2.5, 5.0, 10.0)
 
 
 def _label_key(labels: dict[str, str]) -> tuple:
@@ -55,19 +61,123 @@ class Counter:
         return lines
 
 
+class Gauge:
+    def __init__(self, name: str, help_text: str):
+        self.name = name
+        self.help = help_text
+        self._values: dict[tuple, float] = {}
+        # qwlint: disable-next-line=QW008 - metrics/tracing leaf locks; counter
+        # updates only, no instrumented ops inside
+        self._lock = threading.Lock()
+
+    def set(self, value: float, **labels: str) -> None:
+        with self._lock:
+            self._values[_label_key(labels)] = value
+
+    def add(self, amount: float, **labels: str) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def get(self, **labels: str) -> float:
+        return self._values.get(_label_key(labels), 0.0)
+
+    def expose(self) -> list[str]:
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        for key, value in sorted(self._values.items()):
+            lines.append(f"{self.name}{_format_labels(key)} {value:g}")
+        return lines
+
+
+class Histogram:
+    def __init__(self, name: str, help_text: str,
+                 buckets: Sequence[float] = DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help_text
+        self.buckets = tuple(buckets)
+        self._counts: dict[tuple, list[int]] = {}
+        self._sums: dict[tuple, float] = {}
+        self._totals: dict[tuple, int] = {}
+        # qwlint: disable-next-line=QW008 - metrics/tracing leaf locks; counter
+        # updates only, no instrumented ops inside
+        self._lock = threading.Lock()
+
+    def observe(self, value: float, **labels: str) -> None:
+        from bisect import bisect_left
+        key = _label_key(labels)
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            # raw count at the first bucket with le >= value (cumulative form
+            # is computed at exposition); larger values count only in +Inf
+            slot = bisect_left(self.buckets, value)
+            if slot < len(counts):
+                counts[slot] += 1
+            self._sums[key] = self._sums.get(key, 0.0) + value
+            self._totals[key] = self._totals.get(key, 0) + 1
+
+    def percentile(self, q: float, **labels: str) -> Optional[float]:
+        key = _label_key(labels)
+        counts = self._counts.get(key)
+        total = self._totals.get(key, 0)
+        if not counts or total == 0:
+            return None
+        rank = q * total
+        acc = 0
+        for i, c in enumerate(counts):
+            acc += c
+            if acc >= rank:
+                return self.buckets[i] if i < len(self.buckets) else self.buckets[-1]
+        return self.buckets[-1]
+
+    def expose(self) -> list[str]:
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        for key in sorted(self._counts):
+            counts = self._counts[key]
+            cumulative = 0
+            for bucket, count in zip(self.buckets, counts):
+                cumulative += count
+                label = dict(key)
+                label["le"] = f"{bucket:g}"
+                lines.append(
+                    f"{self.name}_bucket{_format_labels(_label_key(label))} {cumulative}")
+            label = dict(key)
+            label["le"] = "+Inf"
+            lines.append(
+                f"{self.name}_bucket{_format_labels(_label_key(label))} "
+                f"{self._totals[key]}")
+            lines.append(f"{self.name}_sum{_format_labels(key)} "
+                         f"{self._sums[key]:g}")
+            lines.append(f"{self.name}_count{_format_labels(key)} "
+                         f"{self._totals[key]}")
+        return lines
+
+
 class MetricsRegistry:
     def __init__(self) -> None:
-        self._metrics: dict[str, Counter] = {}
+        self._metrics: dict[str, object] = {}
         # qwlint: disable-next-line=QW008 - metrics/tracing leaf locks; counter
         # updates only, no instrumented ops inside
         self._lock = threading.Lock()
 
     def counter(self, name: str, help_text: str = "") -> Counter:
+        return self._get_or_create(name, lambda: Counter(name, help_text), Counter)
+
+    def gauge(self, name: str, help_text: str = "") -> Gauge:
+        return self._get_or_create(name, lambda: Gauge(name, help_text), Gauge)
+
+    def histogram(self, name: str, help_text: str = "",
+                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+        return self._get_or_create(
+            name, lambda: Histogram(name, help_text, buckets), Histogram)
+
+    def _get_or_create(self, name, factory, expected_type):
         with self._lock:
             metric = self._metrics.get(name)
             if metric is None:
-                metric = Counter(name, help_text)
+                metric = factory()
                 self._metrics[name] = metric
+            elif not isinstance(metric, expected_type):
+                raise TypeError(f"metric {name!r} already registered with another type")
             return metric
 
     def expose_text(self) -> str:
@@ -75,13 +185,71 @@ class MetricsRegistry:
         with self._lock:
             metrics = list(self._metrics.values())
         for metric in metrics:
-            lines.extend(metric.expose())
+            lines.extend(metric.expose())  # type: ignore[attr-defined]
         return "\n".join(lines) + "\n"
 
 
 METRICS = MetricsRegistry()
 
-# Term-absence negative cache (search/predicate_cache.py).
+# --- search robustness (deadline propagation / shedding) --------------------
+SEARCH_DEADLINE_REMAINING = METRICS.histogram(
+    "qw_search_deadline_remaining_seconds",
+    "Remaining deadline budget when a leaf search begins execution")
+# Work abandoned because the deadline had already passed, labeled by stage
+# (admission queue, leaf group loop, ...).
+SEARCH_SHED_TOTAL = METRICS.counter(
+    "qw_search_shed_total",
+    "Operations shed because the query deadline expired before they ran")
+
+# --- dynamic top-K split pruning (search/pruning.py) ------------------------
+SEARCH_SPLITS_PRUNED_TOTAL = METRICS.counter(
+    "qw_search_splits_pruned_by_threshold_total",
+    "Splits skipped because their sort bound cannot beat the top-K threshold")
+SEARCH_SPLITS_DOWNGRADED_TOTAL = METRICS.counter(
+    "qw_search_splits_downgraded_to_count_total",
+    "Splits downgraded to count-only requests by the top-K threshold")
+SEARCH_KERNEL_THRESHOLD_TOTAL = METRICS.counter(
+    "qw_search_kernel_threshold_pushdown_total",
+    "Plan executions dispatched with a pushed-down top-K threshold scalar")
+
+# --- per-query execution profiles (observability/profile.py) ----------------
+SEARCH_PHASE_SECONDS = METRICS.histogram(
+    "qw_search_phase_seconds",
+    "Wall time spent per query-execution phase (profile waterfall)")
+
+# --- multi-tenant workload isolation (tenancy/) -----------------------------
+# Tenant labels pass through TenancyRegistry.metric_label, which hashes long
+# ids and caps distinct label values.
+TENANT_QUERIES_TOTAL = METRICS.counter(
+    "qw_tenant_queries_total",
+    "Root searches per tenant, labeled by completion status")
+TENANT_SHED_TOTAL = METRICS.counter(
+    "qw_tenant_shed_total",
+    "Queries shed by the overload controller, per tenant and checkpoint")
+TENANT_REJECTED_TOTAL = METRICS.counter(
+    "qw_tenant_rejected_total",
+    "Queries rejected by per-tenant token-bucket rate limits")
+TENANT_STAGED_BYTES_TOTAL = METRICS.counter(
+    "qw_tenant_staged_bytes_total",
+    "HBM bytes admitted (staged) per tenant")
+TENANT_EXECUTE_SECONDS_TOTAL = METRICS.counter(
+    "qw_tenant_execute_seconds_total",
+    "Execution wall time attributed to each tenant from query profiles")
+TENANT_ADMISSION_WAIT = METRICS.histogram(
+    "qw_tenant_admission_wait_seconds",
+    "HBM admission queue wait per tenant")
+
+# --- hierarchical leaf caches (search/cache.py, search/mask_cache.py,
+#     search/agg_cache.py, search/predicate_cache.py) -------------------------
+LEAF_CACHE_HITS_TOTAL = METRICS.counter(
+    "qw_leaf_cache_hits_total",
+    "Whole-split LeafSearchResponse cache hits")
+LEAF_CACHE_MISSES_TOTAL = METRICS.counter(
+    "qw_leaf_cache_misses_total",
+    "Whole-split LeafSearchResponse cache misses")
+LEAF_CACHE_EVICTED_BYTES_TOTAL = METRICS.counter(
+    "qw_leaf_cache_evicted_bytes_total",
+    "Bytes evicted from the leaf response cache under capacity pressure")
 PREDICATE_CACHE_HITS_TOTAL = METRICS.counter(
     "qw_predicate_cache_hits_total",
     "Splits proven empty by the term-absence negative cache")
@@ -92,3 +260,72 @@ PREDICATE_CACHE_EVICTED_BYTES_TOTAL = METRICS.counter(
     "qw_predicate_cache_evicted_bytes_total",
     "Absence-proof bytes evicted from the predicate cache under its "
     "byte/entry bounds")
+MASK_CACHE_HITS_TOTAL = METRICS.counter(
+    "qw_mask_cache_hits_total",
+    "Predicate-mask cache hits (filter bitmask reused across query shapes)")
+MASK_CACHE_MISSES_TOTAL = METRICS.counter(
+    "qw_mask_cache_misses_total",
+    "Predicate-mask cache misses (filter evaluated on device)")
+MASK_CACHE_EVICTED_BYTES_TOTAL = METRICS.counter(
+    "qw_mask_cache_evicted_bytes_total",
+    "Packed mask bytes evicted from the mask cache under capacity pressure")
+AGG_CACHE_HITS_TOTAL = METRICS.counter(
+    "qw_agg_cache_hits_total",
+    "Partial-aggregation cache hits (count or intermediate agg state)")
+AGG_CACHE_MISSES_TOTAL = METRICS.counter(
+    "qw_agg_cache_misses_total",
+    "Partial-aggregation cache misses")
+AGG_CACHE_EVICTED_BYTES_TOTAL = METRICS.counter(
+    "qw_agg_cache_evicted_bytes_total",
+    "Intermediate-agg bytes evicted from the partial-agg cache under "
+    "capacity pressure")
+# Staging attribution for the mask tier: total staged bytes, the subset
+# staged ONLY for predicate evaluation (a mask-cache hit stages zero of
+# these), and device program dispatches (a Tier-B short-circuit runs none).
+STAGING_BYTES_TOTAL = METRICS.counter(
+    "qw_staging_bytes_total",
+    "Host-to-device bytes staged by leaf warmup")
+PREDICATE_STAGED_BYTES_TOTAL = METRICS.counter(
+    "qw_predicate_column_staged_bytes_total",
+    "Staged bytes attributable only to predicate evaluation "
+    "(postings/fieldnorm/filter-column arrays without a sort or agg "
+    "consumer)")
+SEARCH_KERNEL_LAUNCHES_TOTAL = METRICS.counter(
+    "qw_search_kernel_launches_total",
+    "Device program dispatches (search and mask-fill)")
+
+# --- device-resident column store (search/residency.py) ---------------------
+RESIDENT_COLUMN_HITS = METRICS.counter(
+    "qw_resident_column_hits_total",
+    "Columns served from the device-resident store (no host-to-device copy)")
+RESIDENT_COLUMN_MISSES = METRICS.counter(
+    "qw_resident_column_misses_total",
+    "Columns staged cold (one batched host-to-device copy per warmup)")
+RESIDENT_STAGING_CACHE_HITS = METRICS.counter(
+    "qw_resident_staging_cache_hits_total",
+    "Warmups fully served from the resident store: zero columns copied")
+RESIDENT_EVICTIONS = METRICS.counter(
+    "qw_resident_evictions_total",
+    "Resident split column sets evicted (HbmBudget LRU pressure)")
+RESIDENT_BYTES = METRICS.gauge(
+    "qw_resident_bytes",
+    "Device bytes currently held by the resident column store")
+
+# --- chaos / fault injection (common/faults.py) -----------------------------
+FAULTS_INJECTED_TOTAL = METRICS.counter(
+    "qw_faults_injected_total",
+    "Faults fired by the deterministic chaos FaultInjector")
+
+# --- flight recorder (observability/flight.py) ------------------------------
+FLIGHT_EVENTS_TOTAL = METRICS.counter(
+    "qw_flight_events_total",
+    "Flight-recorder events recorded, by emitting subsystem")
+FLIGHT_DROPPED_EVENTS = METRICS.gauge(
+    "qw_flight_dropped_events",
+    "Flight-recorder events overwritten by ring wrap (refreshed on export)")
+FLIGHT_THREADS = METRICS.gauge(
+    "qw_flight_threads",
+    "Threads that have registered a flight-recorder ring")
+FLIGHT_EXPORTS_TOTAL = METRICS.counter(
+    "qw_flight_exports_total",
+    "Chrome trace-event exports served")

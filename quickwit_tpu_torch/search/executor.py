@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..index.format import ZONEMAP_BLOCK
+from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
 from ..ops import aggs as agg_ops
 from ..ops import masks as mask_ops
 from ..ops import topk as topk_ops
@@ -921,6 +922,7 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
     numpy results. `device` (default `cuda`) must be where the arrays are."""
     dev = _on_device(device, device_arrays, "execute_plan")
     k = max(0, min(k, plan.num_docs_padded))
+    SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
     packed, spec = _get_packed_executor(plan, k, dev)(
         list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
     return readback_plan_result(packed, spec)
@@ -950,6 +952,7 @@ def compute_packed_mask(plan: LoweredPlan, device_arrays: list,
     saw the posting tail, so its mask would be incomplete."""
     dev = _on_device(device, device_arrays, "compute_packed_mask")
     padded = plan.num_docs_padded
+    SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
     mask, _ = _node_evaluator(padded, dev)(plan.root, list(device_arrays),
                                            tuple(plan.scalars))
     mask = mask & mask_ops.valid_docs_mask(plan.num_docs, padded, dev)

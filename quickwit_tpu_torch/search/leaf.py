@@ -2,15 +2,18 @@
 
 Role of the reference's `leaf_search_single_split` (`quickwit-search/src/
 leaf.rs:657`): lower the query against the split, stage exactly the arrays
-the plan needs on the device, run the posting-space program, and emit a
-mergeable `LeafSearchResponse`.
+the plan needs on the device, run the leaf program, and emit a mergeable
+`LeafSearchResponse`.
 
-Counterpart of the JAX package's `search/leaf.py`, subset: the staging
-cache is per reader and per device, with no HBM budget and no resident
-column store; execution has no query batcher, no chunked scan, no deadline
-and no tenancy. `search_after` markers (numeric and string, one or two
-keys), the top-k threshold pushdown and a cached predicate mask
-(`mask_override`) reach the device program through `prepare_plan_only`.
+Counterpart of the JAX package's `search/leaf.py`. Staged arrays are cached
+per reader and per device by default; the node's search service
+(`search/service.py`) passes an `HbmBudget` and a `ResidentColumnStore`
+instead, so staging is admitted byte-exactly and residency is keyed by
+split id. Execution has no query batcher and no chunked scan yet.
+`search_after` markers (numeric and string, one or two keys), the top-k
+threshold pushdown, a cached predicate mask (`mask_override`) and a subset
+of the aggregations (`aggs_override`) reach the device program through
+`prepare_plan_only`.
 """
 
 from __future__ import annotations
@@ -23,13 +26,24 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..common import sync
+from ..common.deadline import current_deadline
 from ..models.doc_mapper import DocMapper, FieldType
 from ..index.reader import SplitReader
+from ..observability.metrics import (
+    PREDICATE_STAGED_BYTES_TOTAL, SEARCH_KERNEL_THRESHOLD_TOTAL,
+    STAGING_BYTES_TOTAL,
+)
+from ..observability.profile import (
+    PHASE_PLAN_BUILD, PHASE_STAGING_CACHE_HIT, PHASE_STAGING_UPLOAD,
+    PHASE_TOPK_MERGE, current_profile, profile_add, profiled_phase,
+)
 from ..query.aggregations import parse_aggs
 from .executor import execute_plan
 from .models import (LeafSearchResponse, PartialHit, SearchRequest,
                      string_sort_of)
-from .plan import BucketAggExec, CompositeAggExec, MetricAggExec, lower_request
+from .plan import (BucketAggExec, CompositeAggExec, MetricAggExec,
+                   lower_request, predicate_only_slots)
 from ..ops.topk import MISSING_VALUE_SENTINEL
 from .hostdecode import host_array, host_float, host_int, host_list
 
@@ -68,82 +82,235 @@ def decode_sort_value_exact(internal: float, sort_field: str,
     return raw
 
 
-def _device_cache(reader: SplitReader, device: torch.device) -> dict:
-    caches = getattr(reader, "_torch_device_arrays", None)
-    if caches is None:
-        caches = reader._torch_device_arrays = {}
-    return caches.setdefault(str(device), {})
+class _ReaderArrays:
+    """The arrays one reader staged on one device: the `HbmBudget` owner of
+    the default per-reader cache. It lives as long as its reader, so that
+    residency dies with the reader as in the JAX package's per-reader
+    cache."""
+
+    __slots__ = ("_device_array_cache", "staging_lock", "__weakref__")
+
+    def __init__(self):
+        self._device_array_cache: dict[str, torch.Tensor] = {}
+        self.staging_lock = sync.lock("_ReaderArrays.staging_lock")
+
+
+def _reader_arrays(reader: SplitReader, device: torch.device) -> _ReaderArrays:
+    # setdefault is one dict operation: two threads warming one reader
+    # agree on the owner
+    owners = vars(reader).setdefault("_torch_device_arrays", {})
+    return owners.get(str(device)) or owners.setdefault(str(device),
+                                                        _ReaderArrays())
+
+
+def _pinned_owner(reader, dev, budget, store, split_id):
+    """The owner of the arrays a warmup serves, pinned in `budget` (when
+    given) BEFORE its cache is read: an eviction between the lookup and the
+    admission would otherwise clear keys the lookup counted as resident. A
+    split's store owner evicted just before the pin is replaced in the
+    store, so the pin moves to the new one."""
+    while True:
+        if store is not None and split_id is not None:
+            owner = store.columns_for(split_id)
+        else:
+            owner = _reader_arrays(reader, dev)
+        if budget is None:
+            return owner
+        budget.admit(owner, 0)
+        if store is None or split_id is None or \
+                store.peek(split_id) is owner:
+            return owner
+        budget.release(owner, 0, to_resident=False)
 
 
 def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
 
 
-def warmup_device_arrays(reader: SplitReader, plan, device=None
-                         ) -> tuple[list, int]:
-    """Host→device transfer of the plan's arrays, with cross-query reuse
-    per reader and device (role of `warmup`, `leaf.rs:304`). Arrays not yet
-    on the device are packed into one pinned host buffer and cross in ONE
-    non-blocking copy; each array is a typed view of the device buffer.
-    Returns (device_arrays in slot order, bytes staged by this call)."""
-    dev = resolve_device(device)
-    cache = _device_cache(reader, dev)
-    missing = [(key, np.ascontiguousarray(arr))
-               for key, arr in zip(plan.array_keys, plan.arrays)
-               if key not in cache]
-    # a key can repeat across slots; stage it once
-    missing = list(dict(missing).items())
+def _stage(missing: dict, cache: dict, dev: torch.device) -> None:
+    """Pack `missing` ({key: host array}) into one host buffer (pinned for
+    a GPU) that crosses in ONE non-blocking copy on the current stream;
+    each array becomes a typed view of the device buffer, which is freed
+    when its last view dies."""
     offsets = []
     total = 0
-    for _, arr in missing:
+    for arr in missing.values():
         offsets.append(total)
         total += -(-arr.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    host_np = host.numpy()
+    for arr, off in zip(missing.values(), offsets):
+        host_np[off: off + arr.nbytes] = arr.reshape(-1).view(np.uint8)
+    staged = host.to(dev, non_blocking=True) if dev.type != "cpu" else host
+    for (key, arr), off in zip(missing.items(), offsets):
+        view = staged[off: off + arr.nbytes].view(_torch_dtype(arr.dtype))
+        cache[key] = view.reshape(arr.shape)
+
+
+def warmup_device_arrays(reader: SplitReader, plan, budget=None, store=None,
+                         split_id: Optional[str] = None, device=None
+                         ) -> tuple[list, int, Any]:
+    """Host→device transfer of the plan's arrays, with cross-query reuse
+    (role of `warmup`, `leaf.rs:304`). Arrays not yet on the device are
+    packed into one host buffer and cross in ONE non-blocking copy.
+
+    With an `HbmBudget`, the bytes this call will stage are admitted
+    (blocking while over budget) BEFORE the copy. With a
+    `ResidentColumnStore` (`store` + `split_id`), residency keys on the
+    split id: the `SplitColumns` owner survives reader reopens, and a warm
+    repeat query copies nothing (profiled as `staging_cache_hit`).
+    Without a store, arrays are cached per reader and device, and residency
+    dies with the reader. The store and budget must belong to `device`.
+
+    Returns (device arrays in slot order, bytes staged by this call, owner).
+    With a budget the staged bytes are the admitted bytes, and the caller
+    releases `owner` (not necessarily the reader) after execution. The
+    list holds plain references, so a concurrent LRU eviction clearing the
+    cache cannot free what this query's program reads."""
+    dev = resolve_device(device)
+    owner = _pinned_owner(reader, dev, budget, store, split_id)
+    admitted = 0
+    try:
+        if budget is not None:
+            # the bytes are admitted OUTSIDE the owner's staging lock, so
+            # a warmup queued for budget never stalls a warm query of the
+            # same split; the cache is read again once they are granted
+            while True:
+                with owner.staging_lock:
+                    need = sum(a.nbytes for a in
+                               _missing(plan, owner._device_array_cache)
+                               .values())
+                admitted = budget.admit(owner, need)
+                with owner.staging_lock:
+                    missing = _missing(plan, owner._device_array_cache)
+                    staging_bytes = sum(a.nbytes for a in missing.values())
+                    if staging_bytes <= admitted:
+                        # this admission pins the owner while its arrays
+                        # are in use, also at zero bytes; the lookup's pin
+                        # goes, with the bytes a concurrent warmup staged
+                        # meanwhile
+                        budget.release(owner, admitted - staging_bytes,
+                                       to_resident=False)
+                        admitted = staging_bytes
+                        return _stage_missing(plan, owner, missing,
+                                              staging_bytes, dev, store,
+                                              split_id)
+                # keys went while this one queued: give the bytes back
+                # (the lookup's pin stays) and admit what is missing now
+                budget.release(owner, admitted, to_resident=False)
+                admitted = 0
+        # one warmup per owner at a time: a second one waits and finds the
+        # first one's arrays, instead of staging them again
+        with owner.staging_lock:
+            missing = _missing(plan, owner._device_array_cache)
+            return _stage_missing(plan, owner, missing,
+                                  sum(a.nbytes for a in missing.values()),
+                                  dev, store, split_id)
+    except BaseException:
+        if budget is not None:
+            # this warmup's pin, and its bytes once admitted
+            budget.release(owner, admitted, to_resident=False)
+        raise
+
+
+def _missing(plan, cache: dict) -> dict:
+    # a key that repeats across slots is staged once
+    return {key: np.ascontiguousarray(arr)
+            for key, arr in zip(plan.array_keys, plan.arrays)
+            if key not in cache}
+
+
+def _stage_missing(plan, owner, missing: dict, staging_bytes: int, dev,
+                   store, split_id) -> tuple[list, int, Any]:
+    """Stage `missing` into `owner`'s cache (the caller holds its staging
+    lock); returns `warmup_device_arrays`' triple."""
+    cache = owner._device_array_cache
     if missing:
-        host = torch.empty(total, dtype=torch.uint8,
-                           pin_memory=dev.type == "cuda")
-        host_np = host.numpy()
-        for (_, arr), off in zip(missing, offsets):
-            host_np[off: off + arr.nbytes] = arr.reshape(-1).view(np.uint8)
-        staged = host.to(dev, non_blocking=True) if dev.type != "cpu" \
-            else host
-        for (key, arr), off in zip(missing, offsets):
-            view = staged[off: off + arr.nbytes].view(_torch_dtype(arr.dtype))
-            cache[key] = view.reshape(arr.shape)
-    staged_bytes = sum(arr.nbytes for _, arr in missing)
-    return [cache[key] for key in plan.array_keys], staged_bytes
+        STAGING_BYTES_TOTAL.inc(staging_bytes)
+        # predicate-only attribution: the bytes a mask-cache hit avoids
+        pred_keys = {plan.array_keys[slot]
+                     for slot in predicate_only_slots(plan)}
+        predicate_bytes = sum(arr.nbytes for key, arr in missing.items()
+                              if key in pred_keys)
+        if predicate_bytes:
+            PREDICATE_STAGED_BYTES_TOTAL.inc(predicate_bytes)
+            profile_add("predicate_staging_bytes", predicate_bytes)
+        # the phase times the copy's DISPATCH: it is non-blocking and
+        # completes in stream order before the program reads it
+        with profiled_phase(PHASE_STAGING_UPLOAD) as rec:
+            if rec is not None:
+                rec["bytes"] = staging_bytes
+                rec["arrays"] = len(missing)
+            _stage(missing, cache, dev)
+        profile_add("staging_bytes", staging_bytes)
+        if store is not None and split_id is not None:
+            store.note_upload(split_id, staging_bytes, len(missing))
+            store.note_hits(sum(1 for key in plan.array_keys
+                                if key not in missing), full=False)
+    else:
+        # the whole plan is device-resident: no transfer, no staging — the
+        # phase records the skip (bytes served, none moved)
+        with profiled_phase(PHASE_STAGING_CACHE_HIT) as rec:
+            if rec is not None:
+                rec["bytes"] = 0
+                rec["bytes_resident"] = sum(a.nbytes for a in plan.arrays)
+                rec["arrays"] = len(plan.array_keys)
+        if store is not None and split_id is not None:
+            store.note_hits(len(plan.array_keys), full=True)
+    return [cache[key] for key in plan.array_keys], staging_bytes, owner
 
 
-def prepare_plan_only(request: SearchRequest, doc_mapper: DocMapper,
-                      reader: SplitReader, split_id: str,
-                      sort_value_threshold: Optional[float] = None,
-                      mask_override=None, mask_key: Optional[str] = None):
+def prepare_plan_only(
+    request: SearchRequest,
+    doc_mapper: DocMapper,
+    reader: SplitReader,
+    split_id: str,
+    absence_sink=None,
+    sort_value_threshold: Optional[float] = None,
+    aggs_override: Optional[dict] = None,
+    mask_override=None,
+    mask_key: Optional[str] = None,
+):
     """Storage byte-range IO + plan lowering, without the device transfer.
+    The service's per-split path defers staging to the execute stage so
+    each split's admit→transfer→execute→release cycle runs alone.
 
     `sort_value_threshold` (internal higher-is-better key) is pushed into
     the plan as a scalar masking sub-threshold docs before top-k.
-    `mask_override`/`mask_key` forward a packed predicate mask (from
-    `executor.compute_packed_mask`, of either engine) to `lower_request`,
-    which then skips query lowering and every predicate column."""
-    agg_specs = parse_aggs(request.aggs) if request.aggs else []
+    `absence_sink(field, term)` hears of every term the split lacks (the
+    predicate cache's negative entries). `aggs_override` replaces the
+    request's aggregations: the partial-agg tier passes only those it
+    missed ({} lowers none). `mask_override`/`mask_key` forward a packed
+    predicate mask (from `executor.compute_packed_mask`, of either engine)
+    to `lower_request`, which then skips query lowering and every predicate
+    column."""
+    aggs_dict = request.aggs if aggs_override is None else aggs_override
+    agg_specs = parse_aggs(aggs_dict) if aggs_dict else []
     sort = request.sort_fields[0] if request.sort_fields else None
     sort_field = sort.field if sort else "_score"
     sort_order = sort.order if sort else "desc"
     sort2 = request.sort_fields[1] if len(request.sort_fields) > 1 else None
-    return lower_request(
-        request.query_ast, doc_mapper, reader, agg_specs,
-        sort_field=sort_field, sort_order=sort_order,
-        sort2_field=sort2.field if sort2 else None,
-        sort2_order=sort2.order if sort2 else "desc",
-        start_timestamp=request.start_timestamp,
-        end_timestamp=request.end_timestamp,
-        search_after=search_after_marker(request, split_id, sort_field,
-                                         sort_order, sort2,
-                                         doc_mapper=doc_mapper,
-                                         reader=reader),
-        sort_value_threshold=sort_value_threshold,
-        mask_override=mask_override,
-        mask_key=mask_key,
-    )
+    # plan_build covers storage byte-range IO plus the lowering itself
+    with profiled_phase(PHASE_PLAN_BUILD) as rec:
+        if rec is not None:
+            rec["split_id"] = split_id
+        return lower_request(
+            request.query_ast, doc_mapper, reader, agg_specs,
+            sort_field=sort_field, sort_order=sort_order,
+            sort2_field=sort2.field if sort2 else None,
+            sort2_order=sort2.order if sort2 else "desc",
+            start_timestamp=request.start_timestamp,
+            end_timestamp=request.end_timestamp,
+            search_after=search_after_marker(request, split_id, sort_field,
+                                             sort_order, sort2,
+                                             doc_mapper=doc_mapper,
+                                             reader=reader),
+            absence_sink=absence_sink,
+            sort_value_threshold=sort_value_threshold,
+            mask_override=mask_override,
+            mask_key=mask_key,
+        )
 
 
 def prepare_single_split(request: SearchRequest, doc_mapper: DocMapper,
@@ -152,7 +319,8 @@ def prepare_single_split(request: SearchRequest, doc_mapper: DocMapper,
     """Stage 1 of leaf search: storage IO, plan lowering and the batched
     host→device transfer. Returns (plan, device_arrays, staged_bytes)."""
     plan = prepare_plan_only(request, doc_mapper, reader, split_id)
-    device_arrays, staged = warmup_device_arrays(reader, plan, device)
+    device_arrays, staged, _owner = warmup_device_arrays(reader, plan,
+                                                         device=device)
     return plan, device_arrays, staged
 
 
@@ -180,8 +348,13 @@ def execute_prepared_split(
     device_arrays: list,
     device=None,
 ) -> LeafSearchResponse:
-    """Stage 2: the posting-space program and its single packed readback,
-    decoded into hits and mergeable aggregation states."""
+    """Stage 2: the leaf program and its single packed readback, decoded
+    into hits and mergeable aggregation states."""
+    ambient = current_deadline()
+    if ambient is not None:
+        # shed before launching a program whose result nobody can use; the
+        # service turns this into a typed, retryable SplitSearchError
+        ambient.check(f"leaf split {split_id} execute")
     t0 = time.monotonic()
     sort = request.sort_fields[0] if request.sort_fields else None
     sort_field = sort.field if sort else "_score"
@@ -189,6 +362,9 @@ def execute_prepared_split(
     sort2 = request.sort_fields[1] if len(request.sort_fields) > 1 else None
     # k=0 (count/agg-only): the executor skips keying and top-k entirely
     k = request.start_offset + request.max_hits
+    if plan.threshold_slot >= 0:
+        SEARCH_KERNEL_THRESHOLD_TOTAL.inc()
+        profile_add("kernel_threshold_pushdowns")
     result = execute_plan(plan, k, device_arrays, device)
 
     count = result["count"]
@@ -197,6 +373,8 @@ def execute_prepared_split(
         # prefix of a single bare term's postings, so its count is a
         # truncation artifact — the exact match count is the term's df
         count = plan.count_override
+    profile = current_profile()
+    t_merge = time.monotonic()
     num_hits_returned = min(k, count)
     partial_hits = []
     # text-field sort: internal keys are split-local dictionary ordinals —
@@ -251,6 +429,11 @@ def execute_prepared_split(
             raw_sort_value=raw, sort_value2=internal2, raw_sort_value2=raw2))
 
     intermediate_aggs = _intermediate_aggs(plan, result["aggs"])
+    if profile is not None:
+        # host-side top-K decode + agg-state extraction for this split
+        profile.record_phase(PHASE_TOPK_MERGE,
+                             time.monotonic() - t_merge, start=t_merge,
+                             split_id=split_id, hits=len(partial_hits))
     elapsed = int((time.monotonic() - t0) * 1e6)
     return LeafSearchResponse(
         num_hits=count,

@@ -80,8 +80,8 @@ class Engine:
             resp = self.leaf.execute_prepared_split(
                 request, self.mapper, self.reader, SPLIT, plan, arrays)
         else:
-            arrays, _ = self.leaf.warmup_device_arrays(self.reader, plan,
-                                                       "cpu")
+            arrays, _, _ = self.leaf.warmup_device_arrays(
+                self.reader, plan, device="cpu")
             resp = self.leaf.execute_prepared_split(
                 request, self.mapper, self.reader, SPLIT, plan, arrays,
                 "cpu")

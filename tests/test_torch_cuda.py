@@ -635,3 +635,140 @@ def test_agg_programs_on_cuda_match_cpu(cuda_device):
         for key in ("sort_values", "doc_ids", "scores"):
             np.testing.assert_array_equal(got[key], want[key])
         _close_tree(want["aggs"], got["aggs"], name)
+
+
+# --- the node's search service on the card ----------------------------------
+
+def _service_corpus(num_docs=30_720):
+    """One hdfs split's bytes under two split ids in a resolver."""
+    from quickwit_tpu_torch.common.uri import Protocol
+    from quickwit_tpu_torch.search.models import SplitIdAndFooter
+    from quickwit_tpu_torch.storage import StorageResolver
+    data = synthetic_hdfs_split(num_docs, seed=7)
+    storage = RamStorage(Uri.parse("ram:///svc"))
+    for split_id in ("a", "b"):
+        storage.put(f"{split_id}.split", data)
+    resolver = StorageResolver()
+    resolver.register(Protocol.RAM, lambda _uri: storage)
+    splits = [SplitIdAndFooter(split_id, "ram:///svc", len(data),
+                               num_docs=num_docs) for split_id in ("a", "b")]
+    return resolver, splits
+
+
+def _service(resolver, device, **kw):
+    from quickwit_tpu_torch.search.service import (
+        SearcherContext, SearchService)
+    context = SearcherContext(resolver, batch_size=1, prefetch=False,
+                              device=device, **kw)
+    return SearchService(context), context
+
+
+def _leaf_request(request, splits):
+    from quickwit_tpu_torch.search.models import LeafSearchRequest
+    return LeafSearchRequest(search_request=request, index_uid="hdfs:0",
+                             doc_mapping=HDFS_MAPPER.to_dict(),
+                             splits=list(splits))
+
+
+def _service_requests():
+    from quickwit_tpu_torch.search.models import SortField
+    aggs = {"over_time": {"date_histogram": {"field": "timestamp",
+                                             "fixed_interval": "1d"}},
+            "severities": {"terms": {"field": "severity_text", "size": 10}}}
+    t0_us, day_us = 1_600_000_000 * 1_000_000, 86400 * 1_000_000
+    c2 = Bool(must=(Term("severity_text", "ERROR"),),
+              should=(Term("body", body_term(3)), Term("body", body_term(7))),
+              filter=(Range("timestamp",
+                            lower=RangeBound(t0_us + day_us, True),
+                            upper=RangeBound(t0_us + 4 * day_us, False)),))
+    return {
+        "flagship": SearchRequest(index_ids=["hdfs-logs"],
+                                  query_ast=Term("severity_text", "ERROR"),
+                                  max_hits=10, aggs=aggs),
+        "c2_bool_range_top100": SearchRequest(index_ids=["hdfs-logs"],
+                                              query_ast=c2, max_hits=100),
+        "c2_by_timestamp": SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=c2, max_hits=100,
+            sort_fields=(SortField("timestamp", "desc"),), aggs=aggs),
+    }
+
+
+def _response_key(resp):
+    aggs = {name: {k: (v.dtype.str, v.tolist())
+                   if isinstance(v, np.ndarray) else v
+                   for k, v in state.items()}
+            for name, state in resp.intermediate_aggs.items()}
+    return (resp.num_hits, [(h.split_id, h.doc_id, h.sort_value,
+                             h.raw_sort_value) for h in resp.partial_hits],
+            repr(sorted(aggs.items())), resp.failed_splits)
+
+
+@pytest.mark.gpu
+def test_service_on_cuda_matches_cpu(cuda_device):
+    """`SearchService.leaf_search` on a cuda context equals a cpu context
+    over the same resolver, cold, warm (resident columns, a mask hit) and
+    from the leaf cache; the flagship launches score_topk once per split
+    per call that runs a program."""
+    resolver, splits = _service_corpus()
+    gpu, gpu_ctx = _service(resolver, cuda_device)
+    cpu, _ = _service(resolver, "cpu")
+    import dataclasses
+    for name, request in _service_requests().items():
+        # cold, warm (resident columns; a mask hit for c2_by_timestamp),
+        # and a byte-identical repeat from the leaf cache
+        for max_hits, per_split in ((request.max_hits, 1), (7, 1), (7, 0)):
+            req = dataclasses.replace(request, max_hits=max_hits)
+            before = score_topk.launches
+            got = gpu.leaf_search(_leaf_request(req, splits))
+            launches = score_topk.launches - before
+            want = cpu.leaf_search(_leaf_request(req, splits))
+            assert got.num_hits > 0 and not got.failed_splits
+            assert _response_key(got) == _response_key(want), name
+            want_launches = per_split * len(splits) if name == "flagship" \
+                else 0
+            assert launches == want_launches, (name, max_hits)
+    for cols in gpu_ctx.resident_store._by_split.values():
+        for tensor in cols._device_array_cache.values():
+            assert tensor.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_eviction_lowers_memory_allocated(cuda_device, monkeypatch):
+    """Under a budget of 1.5 splits, each eviction frees at least the bytes
+    the store held for the evicted split, as the CUDA caching allocator
+    counts them (`memory_allocated`, not `memory_reserved`)."""
+    from quickwit_tpu_torch.search import residency
+    from quickwit_tpu_torch.search.admission import HbmBudget
+    resolver, splits = _service_corpus()
+    request = _service_requests()["flagship"]
+    # every tier off: each call stages the flagship's whole column set
+    no_tiers = dict(leaf_cache_bytes=0, enable_mask_cache=False,
+                    enable_agg_cache=False)
+    probe, probe_ctx = _service(resolver, cuda_device, **no_tiers)
+    probe.leaf_search(_leaf_request(request, splits[:1]))
+    per_split = probe_ctx.hbm_budget.stats()["resident"]
+    assert per_split > 0
+    del probe, probe_ctx
+    service, context = _service(resolver, cuda_device, **no_tiers)
+    context.hbm_budget = HbmBudget(budget_bytes=int(per_split * 1.5))
+    drops = []
+    clear = residency._NotifyingCache.clear
+
+    def measured_clear(cache):
+        held = context.resident_store.stats()["by_split"].get(
+            cache._split_id, 0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        clear(cache)
+        drops.append((held, before - torch.cuda.memory_allocated()))
+
+    monkeypatch.setattr(residency._NotifyingCache, "clear", measured_clear)
+    cpu, _ = _service(resolver, "cpu")
+    for _ in range(2):
+        for split in splits:
+            got = service.leaf_search(_leaf_request(request, [split]))
+            want = cpu.leaf_search(_leaf_request(request, [split]))
+            assert _response_key(got) == _response_key(want)
+    assert len(drops) >= 3
+    for held, freed in drops:
+        assert held > 0 and freed >= held, drops

@@ -105,8 +105,8 @@ class Engine:
             plan = self.leaf.prepare_plan_only(
                 request, self.mapper, self.reader, SPLIT,
                 sort_value_threshold=threshold, **extra)
-            arrays, _ = self.leaf.warmup_device_arrays(self.reader, plan,
-                                                       "cpu")
+            arrays, _, _ = self.leaf.warmup_device_arrays(
+                self.reader, plan, device="cpu")
             resp = self.leaf.execute_prepared_split(
                 request, self.mapper, self.reader, SPLIT, plan, arrays,
                 "cpu")

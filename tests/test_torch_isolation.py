@@ -82,7 +82,7 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     plan = prepare_plan_only(request, HDFS_MAPPER, reader, "s")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         warmup_device_arrays(reader, plan)
-    arrays, staged = warmup_device_arrays(reader, plan, device="cpu")
+    arrays, staged, _owner = warmup_device_arrays(reader, plan, device="cpu")
     assert staged == sum(a.nbytes for a in plan.arrays)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         execute_plan(plan, 10, arrays)

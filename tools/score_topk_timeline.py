@@ -183,7 +183,7 @@ def main(argv=None) -> int:
     for shape, req in cs.hdfs_requests(SearchRequest, Term,
                                        body_term).items():
         plan = prepare_plan_only(req, HDFS_MAPPER, reader, "split-0")
-        arrays, _ = warmup_device_arrays(reader, plan, dev)
+        arrays, _, _ = warmup_device_arrays(reader, plan, device=dev)
         r = plan.root
         call = (arrays[r.ids_slot], arrays[r.tfs_slot], arrays[r.norm_slot],
                 plan.scalars[r.idf_slot], plan.scalars[r.avg_len_slot],
