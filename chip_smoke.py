@@ -124,6 +124,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             service call over one split (the leaf cache off) in turns with
             `leaf_search_single_split` on the same reader and beside phase
             6's times, and the mean time of the service call's parts.
+9. chunked: the resumable chunked scan (`search/chunkexec.py`), with the
+            counters zeroed again and the chunking knobs and sizer put back
+            at the end. Through the leaf's staged entry points, with
+            explicit spans, each response equal to the same call with
+            chunking off (f64 sums to rtol 1e-12, all else exactly):
+            - posting mode: the flagship at 131,072 postings per chunk (8
+              chunks, 8 score_topk launches), body_top10 at 524,288 (12
+              chunks, 12 launches), and body_top10 with a pushed-down
+              threshold whose impact prefix spans 3+ chunks, which may stop
+              early (no launch: a threshold turns the fused kernel off);
+            - dense mode at 1,048,576 docs per chunk (10 chunks, posting
+              ids rebased on the card): c2_bool_range_top100, c2 by
+              (timestamp, tenant_id) and its search_after page 2,
+              c5_otel_percentiles_1split and otel_latency_by_service;
+            - c2_aggs (composite) does not chunk: one program, no launch;
+            - the flagship cancelled at the first boundary: partial after 2
+              chunks (2 launches), fewer hits, the cancel-to-return time;
+            - `SearchService.leaf_search` over one split id: the flagship
+              and c2 equal to chunking off, and a cancelled flagship call.
+            No chunked run may restart. Then warm p50/p90 of each chunked
+            request in turns with its fused call, chunks, launches and
+            bytes staged per warm call, the boundary interval's p50/p90,
+            the host chunk-plan time of c2, profiler windows, and
+            score_topk at the chunk shape (P = 131,072).
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -1025,29 +1049,39 @@ def time_request(torch, leaf, st, ex, score_postings, name, mapper,
             and plan.root.scoring):
         return None, 0.0
     root = plan.root
-    ids, tfs = arrays[root.ids_slot], arrays[root.tfs_slot]
-    norms = arrays[root.norm_slot]
-    idf, avg = plan.scalars[root.idf_slot], plan.scalars[root.avg_len_slot]
-    k = min(req.max_hits, ids.shape[0])
+    return kernel_row(torch, st, score_postings, name,
+                      arrays[root.ids_slot], arrays[root.tfs_slot],
+                      arrays[root.norm_slot], plan.scalars[root.idf_slot],
+                      plan.scalars[root.avg_len_slot], plan.num_docs,
+                      min(req.max_hits, arrays[root.ids_slot].shape[0]),
+                      iters, flush, label)
+
+
+def kernel_row(torch, st, score_postings, name, ids, tfs, norms, idf, avg,
+               num_docs, k, iters, flush, label):
+    """score_topk at one shape: per-call and graph-replay ms, the plain
+    version's and `torch.topk`'s ms, the bound and the sector floor, and
+    the winners against the plain version. Its launches are put back: they
+    are not a path's. Returns (row, max abs error)."""
     P = ids.shape[0]
     before = st.score_topk.launches
     kernel_ms = cuda_ms(torch, lambda: st.score_topk(
-        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+        ids, tfs, norms, idf, avg, num_docs, k), iters, flush)
     device_ms = graph_ms(torch, lambda: st.score_topk(
-        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+        ids, tfs, norms, idf, avg, num_docs, k), iters, flush)
     st.score_topk.launches = before   # timing launches are not the path's
     plain_ms = cuda_ms(torch, lambda: st.score_topk_reference(
-        ids, tfs, norms, idf, avg, plan.num_docs, k), iters, flush)
+        ids, tfs, norms, idf, avg, num_docs, k), iters, flush)
     scores = score_postings(tfs, ids, norms, avg, idf)
-    scores = torch.where((tfs > 0) & (ids < plan.num_docs), scores,
+    scores = torch.where((tfs > 0) & (ids < num_docs), scores,
                          float("-inf"))
     library_ms = cuda_ms(torch, lambda: torch.topk(scores, k),
                          iters, flush)
-    got = st.score_topk(ids, tfs, norms, idf, avg, plan.num_docs, k)
+    got = st.score_topk(ids, tfs, norms, idf, avg, num_docs, k)
     st.score_topk.launches = before
     want = st.score_topk_reference(ids, tfs, norms, idf, avg,
-                                   plan.num_docs, k)
-    num_valid = int(((tfs > 0) & (ids < plan.num_docs)).sum())
+                                   num_docs, k)
+    num_valid = int(((tfs > 0) & (ids < num_docs)).sum())
     err = compare_winners(torch, got, want, num_valid, k)
     # bytes: ids + tfs + one gathered norm per posting, read once; the
     # k (f32, i64) winners written once. ops: ~11 f32 ops per posting.
@@ -1057,7 +1091,7 @@ def time_request(torch, leaf, st, ex, score_postings, name, mapper,
     # the floor the bound does not show: each gathered norm moves its
     # whole 32-byte sector, so count the distinct sectors this run's
     # valid postings touch, beside the streamed ids and tfs
-    live = (tfs > 0) & (ids < plan.num_docs)
+    live = (tfs > 0) & (ids < num_docs)
     sectors = int(torch.unique(ids[live] // 8).numel())
     sector_bytes = 8 * P + 32 * sectors + 12 * k
     sector_ms = sector_bytes / H100_BYTES_PER_S * 1e3
@@ -1415,6 +1449,324 @@ def check_service(torch, st, mods, storage, num_docs, reqs, dev, iters,
         storage.delete(f"{split_id}.split")
 
 
+# --------------------------------------------------------------------------
+# phase 9: resumable chunked scans
+
+POSTING_SPANS = {"flagship": 131_072, "body_top10": 524_288,
+                 "body_top10_early_term": 524_288}
+DOC_SPAN = 1_048_576
+
+
+class CancelAtBoundary:
+    """A fault injector that cancels `token` at the scan's first chunk
+    boundary (observed at the next one) and notes when."""
+
+    def __init__(self, token):
+        self.token = token
+        self.cancelled_at = None
+
+    def perturb(self, operation):
+        if operation == "kernel.chunk_yield" and self.cancelled_at is None:
+            self.cancelled_at = time.perf_counter()
+            self.token.cancel("chip_smoke cancel")
+
+
+def early_term_threshold(reader, field, term, span):
+    """The largest impact block bound whose pushed-down prefix (rounded up
+    to a power of two of 128-posting blocks, as the lowering rounds it)
+    spans at least three chunks of `span` postings and stops short of the
+    term's end, so the plan carries the exact count (`count_override`)
+    and the scan may stop early. Returns (threshold, prefix postings)."""
+    import numpy as np
+    info = reader.lookup_term(field, term)
+    bmax, scale = reader.impact_term_bounds(field, info)
+    bounds = bmax.astype(np.float64) * float(scale)
+    for threshold in np.unique(bounds)[::-1]:
+        live_blocks = 1
+        while live_blocks < int(np.count_nonzero(bounds >= threshold)):
+            live_blocks *= 2
+        if 3 * span <= live_blocks * 128 < info.post_len:
+            return float(threshold), live_blocks * 128
+    raise AssertionError(f"{term}: no threshold prunes to 3+ chunks")
+
+
+def check_chunked(torch, st, mods, reader, otel_reader, reqs, storage,
+                  num_docs, dev, iters, label, here, flush) -> dict:
+    """Phase 9: the resumable chunked scan through `leaf_search_single_split`
+    and `SearchService.leaf_search`, with explicit spans, each response
+    against the same call with chunking off (the fused program); the
+    cancelled scan; the timings. Returns the path's score_topk launches and
+    the kernel row at the chunk shape."""
+    import dataclasses
+
+    import numpy as np
+    leaf, ex, ce, metrics, svc_mod, models, deadline, Protocol, \
+        StorageResolver, HDFS_MAPPER, OTEL_MAPPER, score_postings = mods
+    saved = (ce.CHUNKING, ce.CHUNK_SIZER)
+    ce.CHUNKING, ce.CHUNK_SIZER = ce.ChunkConfig(), ce._ChunkSizer()
+    try:
+        def counter(name):
+            return getattr(metrics, name).get()
+
+        def spans_for(name):
+            return {"posting_span": POSTING_SPANS.get(name),
+                    "doc_span": DOC_SPAN}
+
+        # name -> (mapper, reader, request, threshold)
+        cases = {name: (HDFS_MAPPER, reader, reqs[name], None)
+                 for name in ("flagship", "body_top10", "c2_bool_range_top100",
+                              "c2_ts_tenant_top100")}
+        for name in ("c5_otel_percentiles_1split", "otel_latency_by_service"):
+            cases[name] = (OTEL_MAPPER, otel_reader, reqs[name], None)
+        cases["c2_aggs"] = (HDFS_MAPPER, reader, reqs["c2_aggs"], None)
+        body_term = reqs["body_top10"].query_ast.value
+        threshold, prefix = early_term_threshold(
+            reader, "body", body_term, POSTING_SPANS["body_top10_early_term"])
+        cases["body_top10_early_term"] = (HDFS_MAPPER, reader,
+                                          reqs["body_top10"], threshold)
+        say(f"chunked body_top10_early_term: threshold={threshold!r} "
+            f"(an impact block bound) keeps a prefix of {prefix} postings")
+
+        def run(name, chunked, **kw):
+            mapper, split_reader, req, thr = cases[name]
+            ce.CHUNKING.set(enabled=chunked, **spans_for(name))
+            return run_split(leaf, mapper, req, split_reader, dev,
+                             threshold=thr, **kw)
+
+        # the fused references, chunking off; their launches are not the path's
+        before = st.score_topk.launches
+        fused = {name: run(name, False)[1] for name in cases}
+        c2_page1 = fused["c2_ts_tenant_top100"].partial_hits[-1]
+        page2 = dataclasses.replace(reqs["c2_ts_tenant_top100"], search_after=[
+            c2_page1.raw_sort_value, c2_page1.raw_sort_value2, "split-0",
+            c2_page1.doc_id])
+        cases["c2_ts_tenant_page2"] = (HDFS_MAPPER, reader, page2, None)
+        fused["c2_ts_tenant_page2"] = run("c2_ts_tenant_page2", False)[1]
+        fused_launches = st.score_topk.launches - before
+        st.score_topk.launches = before
+
+        def same(name, got, want):
+            if got.num_hits != want.num_hits or hit_key(got) != hit_key(want):
+                raise AssertionError(f"chunked {name}: hits differ from fused")
+            assert_aggs_close(want.intermediate_aggs, got.intermediate_aggs,
+                              f"chunked {name}")
+            if got.failed_splits or got.num_hits <= 0:
+                raise AssertionError(f"chunked {name}: failed or no hits")
+
+        # the path, with the counters zeroed just before
+        restarts0 = counter("CHUNK_RESTARTS_TOTAL")
+        st.score_topk.launches = 0
+        per_case = {}
+        for name in cases:
+            d0 = counter("CHUNK_DISPATCHES_TOTAL")
+            e0 = counter("CHUNK_EARLY_TERMINATIONS_TOTAL")
+            p0 = counter("SEARCH_KERNEL_LAUNCHES_TOTAL")
+            k0 = st.score_topk.launches
+            plan, got = run(name, True)
+            mode = ce.chunk_mode(plan)
+            total = (len(ce.chunk_spans(mode[1], spans_for(name)[
+                "posting_span" if mode[0] == "posting" else "doc_span"],
+                mode[2])) if mode else 1)
+            same(name, got, fused[name])
+            per_case[name] = {
+                "mode": mode[0] if mode else None, "chunks": total,
+                "dispatched": int(counter("CHUNK_DISPATCHES_TOTAL") - d0),
+                "early_terminations": int(
+                    counter("CHUNK_EARLY_TERMINATIONS_TOTAL") - e0),
+                "programs": int(counter("SEARCH_KERNEL_LAUNCHES_TOTAL") - p0),
+                "score_topk": st.score_topk.launches - k0}
+            say(f"chunked {name}: {json.dumps(per_case[name])} num_hits="
+                f"{got.num_hits} equal_to_fused=True")
+        expect = {"flagship": (8, 8), "body_top10": (12, 12),
+                  "c2_bool_range_top100": (10, 0),
+                  "c2_ts_tenant_top100": (10, 0),
+                  "c2_ts_tenant_page2": (10, 0),
+                  "c5_otel_percentiles_1split": (10, 0),
+                  "otel_latency_by_service": (10, 0), "c2_aggs": (0, 0)}
+        for name, (dispatched, launched) in expect.items():
+            got = per_case[name]
+            if (got["dispatched"], got["score_topk"]) != (dispatched,
+                                                          launched):
+                raise AssertionError(
+                    f"chunked {name}: {got}, expected {dispatched} chunks, "
+                    f"{launched} launches")
+        if per_case["c2_aggs"]["mode"] is not None or \
+                per_case["c2_aggs"]["programs"] != 1:
+            raise AssertionError("chunked c2_aggs: a composite plan chunked")
+        early = per_case["body_top10_early_term"]
+        if early["score_topk"] != 0 or early["chunks"] < 3:
+            raise AssertionError(f"chunked body_top10_early_term: {early}")
+
+        # cancel: the flagship cancelled at boundary 1, observed at boundary 2
+        mapper, _, req, _ = cases["flagship"]
+        ce.CHUNKING.set(enabled=True, **spans_for("flagship"))
+        plan = leaf.prepare_plan_only(req, mapper, reader, "split-0")
+        arrays, _, _ = leaf.warmup_device_arrays(reader, plan, device=dev)
+        token = deadline.CancellationToken()
+        shim = CancelAtBoundary(token)
+        d0 = counter("CHUNK_DISPATCHES_TOTAL")
+        k0 = st.score_topk.launches
+        with deadline.cancel_scope(token):
+            cut = leaf.execute_prepared_split(req, mapper, reader, "split-0",
+                                              plan, arrays, dev,
+                                              fault_injector=shim)
+        returned = time.perf_counter()
+        dispatched = int(counter("CHUNK_DISPATCHES_TOTAL") - d0)
+        if not (len(cut.failed_splits) == 1 and cut.failed_splits[0].error
+                .startswith("query cancelled: progressive partial results")
+                and dispatched == 2 and st.score_topk.launches - k0 == 2
+                and 0 < cut.num_hits < fused["flagship"].num_hits):
+            raise AssertionError(f"chunked cancel: dispatched={dispatched} "
+                                 f"num_hits={cut.num_hits} "
+                                 f"failed={cut.failed_splits}")
+        say(f"[{label}] chunked cancel flagship: partial=True chunks=2 of 8 "
+            f"score_topk=2 num_hits={cut.num_hits} of "
+            f"{fused['flagship'].num_hits} cancel_to_return_ms="
+            f"{(returned - shim.cancelled_at) * 1e3:.4f}")
+
+        # through the service, over one split id
+        data = storage.get_all("hdfs.split")
+        storage.put("hdfs_a.split", data)
+        resolver = StorageResolver()
+        resolver.register(Protocol.RAM, lambda _uri: storage)
+        split = models.SplitIdAndFooter("hdfs_a", "ram:///chip_smoke",
+                                        len(data), num_docs=num_docs)
+        del data
+
+        def service(**kw):
+            ctx = svc_mod.SearcherContext(
+                storage_resolver=resolver, device=dev, leaf_cache_bytes=0,
+                enable_mask_cache=False, enable_agg_cache=False, **kw)
+            return svc_mod.SearchService(ctx)
+
+        def leaf_search(svc, req):
+            return svc.leaf_search(models.LeafSearchRequest(
+                search_request=req, index_uid="hdfs-logs:0",
+                doc_mapping=HDFS_MAPPER.to_dict(), splits=[split]))
+
+        svc = service()
+        service_launches = {}
+        for name in ("flagship", "c2_bool_range_top100"):
+            req = cases[name][2]
+            ce.CHUNKING.set(enabled=False)
+            k0 = st.score_topk.launches
+            want = leaf_search(svc, req)
+            fused_launches += st.score_topk.launches - k0
+            st.score_topk.launches = k0
+            ce.CHUNKING.set(enabled=True, **spans_for(name))
+            d0 = counter("CHUNK_DISPATCHES_TOTAL")
+            got = leaf_search(svc, req)
+            same(f"service {name}", got, want)
+            service_launches[name] = st.score_topk.launches - k0
+            say(f"chunked service {name}: chunks="
+                f"{counter('CHUNK_DISPATCHES_TOTAL') - d0:.0f} score_topk="
+                f"{service_launches[name]} equal_to_chunking_off=True")
+        token = deadline.CancellationToken()
+        ce.CHUNKING.set(enabled=True, **spans_for("flagship"))
+        with deadline.cancel_scope(token):
+            got = leaf_search(service(fault_injector=CancelAtBoundary(token)),
+                              cases["flagship"][2])
+        if not (len(got.failed_splits) == 1
+                and not got.failed_splits[0].retryable
+                and got.failed_splits[0].error.startswith("query cancelled")
+                and 0 < got.num_hits < fused["flagship"].num_hits):
+            raise AssertionError(
+                f"chunked service cancel: {got.failed_splits}")
+        say(f"chunked service cancel flagship: num_hits={got.num_hits} "
+            f"failed_splits="
+            f"{[(f.split_id, f.retryable) for f in got.failed_splits]}")
+        storage.delete("hdfs_a.split")
+        path_launches = st.score_topk.launches
+        restarts = counter("CHUNK_RESTARTS_TOTAL") - restarts0
+        if restarts:
+            raise AssertionError(
+                f"chunked: {restarts} restarts without a fault")
+
+        # timing: chunked and fused in turns on the same reader; boundary
+        # intervals read from the histogram's observations
+        samples = []
+        hist = metrics.CHUNK_BOUNDARY_SECONDS
+        observe = hist.observe
+
+        def record(value, **labels):
+            samples.append(value)
+            observe(value, **labels)
+
+        timed_iters = min(iters, 10)
+        hist.observe = record
+        try:
+            for name in ("flagship", "body_top10", "body_top10_early_term",
+                         "c2_bool_range_top100", "c2_ts_tenant_top100",
+                         "c5_otel_percentiles_1split",
+                         "otel_latency_by_service"):
+                run(name, True)
+                run(name, False)
+                walls, fused_walls = [], []
+                del samples[:]
+                d0 = counter("CHUNK_DISPATCHES_TOTAL")
+                chunk_launches = staged = 0
+                for _ in range(timed_iters):
+                    k0 = st.score_topk.launches
+                    staged0 = counter("STAGING_BYTES_TOTAL")
+                    t0 = time.perf_counter()
+                    run(name, True)
+                    t1 = time.perf_counter()
+                    chunk_launches += st.score_topk.launches - k0
+                    staged += counter("STAGING_BYTES_TOTAL") - staged0
+                    run(name, False)
+                    walls.append((t1 - t0) * 1e3)
+                    fused_walls.append((time.perf_counter() - t1) * 1e3)
+                ms, nan = sorted(v * 1e3 for v in samples), float("nan")
+                chunks = (counter("CHUNK_DISPATCHES_TOTAL") - d0) / timed_iters
+                say(f"[{label}] chunked timing {name}: warm_p50_ms="
+                    f"{pct(walls, 0.5):.4f} warm_p90_ms={pct(walls, 0.9):.4f} "
+                    f"fused_in_turns_p50_ms={pct(fused_walls, 0.5):.4f} "
+                    f"iters={timed_iters} chunks_per_call={chunks:.2f} "
+                    f"score_topk_per_call={chunk_launches / timed_iters:.2f} "
+                    f"staged_bytes_per_warm_call={staged / timed_iters:.0f} "
+                    f"boundary_p50_ms={pct(ms, 0.5) if ms else nan:.4f} "
+                    f"boundary_p90_ms={pct(ms, 0.9) if ms else nan:.4f}")
+        finally:
+            del hist.observe
+        st.score_topk.launches = path_launches
+
+        # host and device parts of one chunked call
+        mapper, split_reader, req, _ = cases["c2_bool_range_top100"]
+        c2_plan = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
+        t0 = time.perf_counter()
+        for lo, hi in ce.chunk_spans(c2_plan.num_docs_padded, DOC_SPAN,
+                                     ce.DOC_PAD):
+            ce.dense_chunk_plan(c2_plan, lo, hi - lo)
+        say(f"[{label}] chunked c2_bool_range_top100 host dense_chunk_plan "
+            f"(host posting-id rebase) ms per call: "
+            f"{(time.perf_counter() - t0) * 1e3:.4f}")
+        for name in ("flagship", "c2_bool_range_top100"):
+            summary = device_profile(
+                torch, lambda: run(name, True), 3,
+                os.path.join(here, "chip_traces",
+                             f"trace_chunked_{name}.json"))
+            say(f"[{label}] profile chunked {name}: {summary}")
+        st.score_topk.launches = path_launches
+
+        # the kernel at the chunk shape: the flagship's first chunk
+        mapper, split_reader, req, _ = cases["flagship"]
+        plan = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
+        arrays, _, _ = leaf.warmup_device_arrays(split_reader, plan,
+                                                 device=dev)
+        root, span = plan.root, POSTING_SPANS["flagship"]
+        row, err = kernel_row(
+            torch, st, score_postings, "flagship_chunk",
+            arrays[root.ids_slot][:span], arrays[root.tfs_slot][:span],
+            arrays[root.norm_slot], plan.scalars[root.idf_slot],
+            plan.scalars[root.avg_len_slot], plan.num_docs, req.max_hits,
+            iters, flush, label)
+        say(f"[{label}] chunked fused-reference launches (not the path's): "
+            f"score_topk={fused_launches}; restarts=0")
+        return {"launches": path_launches, "row": row, "err": err}
+    finally:
+        ce.CHUNKING, ce.CHUNK_SIZER = saved
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -1445,6 +1797,8 @@ def main(argv=None) -> int:
     from quickwit_tpu_torch.ops.kernels import score_topk as st
     from quickwit_tpu_torch.query.ast import (
         Bool, FullText, MatchAll, PhrasePrefix, Range, RangeBound, Term)
+    from quickwit_tpu_torch.common import deadline as deadline_mod
+    from quickwit_tpu_torch.search import chunkexec
     from quickwit_tpu_torch.search import collector as collector_mod
     from quickwit_tpu_torch.search import executor as ex
     from quickwit_tpu_torch.search import leaf as leaf_mod
@@ -1658,6 +2012,23 @@ def main(argv=None) -> int:
     if service_launches["score_topk"] < 1:
         raise AssertionError("score_topk never launched on the service path")
 
+    # 9. chunked scans, with the counters zeroed again ---------------------
+    t0 = time.perf_counter()
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    chunked = check_chunked(
+        torch, st, (leaf_mod, ex, chunkexec, metrics, svc_mod, search_models,
+                    deadline_mod, Protocol, StorageResolver, HDFS_MAPPER,
+                    OTEL_BENCH_MAPPER, score_postings),
+        reader, splits["otel"][1], {
+            **requests, **doc_reqs,
+            **{name: req for name, (_, req, _) in agg_reqs.items()}},
+        storage, args.docs, dev, args.iters, label, here, flush)
+    del flush_buf
+    rows.append(chunked["row"])
+    max_abs_err = max(max_abs_err, chunked["err"])
+    say(f"chunked launches: {json.dumps({'score_topk': chunked['launches']})}"
+        f" phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -1665,12 +2036,14 @@ def main(argv=None) -> int:
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
         # the slice's flagship and body_top10 calls, the two
         # flagship_bucket_metrics calls of the aggregation phase, the
-        # three c4 calls of the phrase phase and the service phase's
+        # three c4 calls of the phrase phase, the service phase's
         # flagship calls before its timing (one per split of each call
-        # that runs a program)
+        # that runs a program) and the chunked phase's scans before its
+        # timing (one per posting chunk of a score-sorted scan)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
-                     + service_launches["score_topk"]),
+                     + service_launches["score_topk"]
+                     + chunked["launches"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],

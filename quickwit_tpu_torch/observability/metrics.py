@@ -4,9 +4,10 @@ Role of the reference's `quickwit-metrics` macro registry
 (`quickwit-metrics/src/lib.rs:44-343`): lazily-registered counters, gauges
 and histograms with labels, exposed in Prometheus text format. The port
 registers what its modules read: the leaf and node search service, HBM
-admission and the resident column store, the three cache tiers, tenancy,
-fault injection and the flight recorder (and, in their own modules, the
-split cache's counters). Other subsystems' metrics come with them.
+admission and the resident column store, the three cache tiers, the
+chunked scan and query cancellation, tenancy, fault injection and the
+flight recorder (and, in their own modules, the split cache's counters).
+Other subsystems' metrics come with them.
 """
 
 from __future__ import annotations
@@ -315,6 +316,44 @@ RESIDENT_BYTES = METRICS.gauge(
 FAULTS_INJECTED_TOTAL = METRICS.counter(
     "qw_faults_injected_total",
     "Faults fired by the deterministic chaos FaultInjector")
+
+# --- resumable chunked leaf scan (search/chunkexec.py) ----------------------
+# One increment per chunk program the chunked scan runs; beside
+# qw_search_kernel_launches_total it shows how much of the device work runs
+# under boundary control.
+CHUNK_DISPATCHES_TOTAL = METRICS.counter(
+    "qw_chunk_dispatches_total",
+    "Chunk programs dispatched by the resumable chunked leaf scan")
+# A chunked query that lost its carried state (a parked-state eviction or a
+# kernel.chunk_yield fault) and re-executed from chunk 0.
+CHUNK_RESTARTS_TOTAL = METRICS.counter(
+    "qw_chunk_restarts_total",
+    "Chunked queries that discarded carried state and re-executed from scratch")
+# The remaining chunks' block-max bounds could not beat the current Kth
+# value, so the scan stopped early.
+CHUNK_EARLY_TERMINATIONS_TOTAL = METRICS.counter(
+    "qw_chunk_early_terminations_total",
+    "Chunked scans stopped early by the cross-chunk block-max bound")
+# Host wall time between consecutive chunk boundaries (program, readback and
+# boundary checks): the bound on cancel and preempt latency.
+CHUNK_BOUNDARY_SECONDS = METRICS.histogram(
+    "qw_chunk_boundary_seconds",
+    "Wall time between consecutive chunk boundaries of the chunked scan")
+# A lower-class query yielded at a chunk boundary because the overload
+# ladder tripped while a higher-class query was running.
+PREEMPT_TOTAL = METRICS.counter(
+    "qw_preempt_total",
+    "Chunked queries preempted at a boundary in favor of a higher class")
+# Bytes of carried top-K/agg state parked by preempted queries (bounded by
+# the per-tenant DRR quantum; evictions force restarts).
+PREEMPT_PARKED_BYTES = METRICS.gauge(
+    "qw_preempt_parked_bytes",
+    "Carried chunk state bytes currently parked by preempted queries")
+# Cancellations that found (and flipped) a live query's CancellationToken
+# in search/cancel.py's registry.
+SEARCH_CANCEL_TOTAL = METRICS.counter(
+    "qw_search_cancel_total",
+    "Explicit query cancellations accepted via the REST cancel surface")
 
 # --- flight recorder (observability/flight.py) ------------------------------
 FLIGHT_EVENTS_TOTAL = METRICS.counter(

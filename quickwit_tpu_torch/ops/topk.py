@@ -7,7 +7,8 @@ higher-is-better f64 key, ties broken by **ascending index**, which is
 
 Counterpart of the JAX package's `ops/topk.py`: the constants,
 `exact_topk`, `exact_topk_2key`, `apply_threshold_mask`,
-`block_max_threshold_mask` and `_pad_to_block`. The JAX package's
+`block_max_threshold_mask`, `_pad_to_block` and the chunked scan's host
+merge `merge_topk_chunks`. The JAX package's
 `guided_topk` (an f32 screen that re-dispatches through `exact_topk`
 whenever it cannot certify the answer) is not carried over; this package
 runs exact only. (Its certificate compares `-0.0` and `+0.0` equal, so
@@ -25,6 +26,7 @@ NaN at one end, and a radix sort on the GPU ranks them by their bits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -173,3 +175,60 @@ def block_max_threshold_mask(keyed: torch.Tensor, block_bounds: torch.Tensor,
     blocks = keyed.reshape(nb, keyed.shape[0] // nb)
     live = (block_bounds >= float(threshold))[:, None]
     return torch.where(live, blocks, NEG_INF).reshape(-1)
+
+
+def _np_total_order_key(x: np.ndarray) -> np.ndarray:
+    """Host twin of `_total_order_key` for f64 arrays."""
+    bits = np.ascontiguousarray(x, dtype=np.float64).view(np.int64)
+    return bits ^ ((bits >> 63) & np.iinfo(np.int64).max)
+
+
+def _np_sort_key(x: np.ndarray) -> np.ndarray:
+    """Host twin of `_sort_key` for f64 arrays."""
+    key = np.where(x == 0, 0, _np_total_order_key(x))
+    return np.where(np.isnan(x), np.iinfo(np.int64).max, key)
+
+
+def merge_topk_chunks(chunks, k: int):
+    """Host merge of per-chunk top-k results (search/chunkexec.py).
+
+    `chunks` is a list of `(vals, vals2, doc_ids, scores)` host tuples, one
+    per chunk in lane order, each a chunk program's readback: vals ranked
+    by the chunk's own top-k, `vals2` None for single-key sorts, doc ids
+    already in GLOBAL doc space. Returns the same 4-tuple truncated or
+    padded (-inf, id 0, score 0) to `k`.
+
+    Every global winner is a winner of its own chunk, and chunks partition
+    the lanes in ascending order, so ONE stable sort of the concatenation
+    in (chunk, rank) order reproduces the fused program's lowest-lane tie
+    order, provided it ranks floats as the device selection does: the IEEE
+    total order for one key (`exact_topk`: +0.0 above -0.0, +NaN first),
+    `lax.sort`'s order for two (`exact_topk_2key`: the zeros equal, NaN
+    after -inf). The JAX package's `np.lexsort(-vals)` ranks the zeros
+    equal and NaN last for one key too, so there a chunked single-key
+    result can differ from the fused one (ROADMAP §3)."""
+    vals = np.concatenate([np.asarray(c[0], np.float64) for c in chunks])
+    has2 = chunks[0][1] is not None
+    vals2 = (np.concatenate([np.asarray(c[1], np.float64) for c in chunks])
+             if has2 else None)
+    doc_ids = np.concatenate([np.asarray(c[2], np.int32) for c in chunks])
+    scores = np.concatenate([np.asarray(c[3], np.float32) for c in chunks])
+    # np.lexsort is stable and sorts ascending by its LAST key first; `~`
+    # reverses an integer order without overflow
+    if vals2 is None:
+        keys = (~_np_total_order_key(vals),)
+    else:
+        keys = (_np_sort_key(-vals2), _np_sort_key(-vals))
+    order = np.lexsort(keys)[:k]
+    take = len(order)
+    out_vals = np.full(k, NEG_INF, dtype=np.float64)
+    out_vals[:take] = vals[order]
+    out_vals2 = None
+    if has2:
+        out_vals2 = np.full(k, NEG_INF, dtype=np.float64)
+        out_vals2[:take] = vals2[order]
+    out_ids = np.zeros(k, dtype=np.int32)
+    out_ids[:take] = doc_ids[order]
+    out_scores = np.zeros(k, dtype=np.float32)
+    out_scores[:take] = scores[order]
+    return out_vals, out_vals2, out_ids, out_scores

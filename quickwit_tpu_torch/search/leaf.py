@@ -9,7 +9,11 @@ Counterpart of the JAX package's `search/leaf.py`. Staged arrays are cached
 per reader and per device by default; the node's search service
 (`search/service.py`) passes an `HbmBudget` and a `ResidentColumnStore`
 instead, so staging is admitted byte-exactly and residency is keyed by
-split id. Execution has no query batcher and no chunked scan yet.
+split id. Work that spans two chunks at the configured span (or the
+adaptive sizer's) runs as a resumable chunked scan (`search/chunkexec.py`):
+cancellable, preemptable and early-terminable at every chunk boundary,
+each chunk through the same `execute_plan`. Execution has no query batcher
+yet.
 `search_after` markers (numeric and string, one or two keys), the top-k
 threshold pushdown, a cached predicate mask (`mask_override`) and a subset
 of the aggregations (`aggs_override`) reach the device program through
@@ -39,9 +43,11 @@ from ..observability.profile import (
     PHASE_TOPK_MERGE, current_profile, profile_add, profiled_phase,
 )
 from ..query.aggregations import parse_aggs
+from ..tenancy.context import effective_tenant
+from .chunkexec import PREEMPT_GATE, maybe_execute_chunked
 from .executor import execute_plan
 from .models import (LeafSearchResponse, PartialHit, SearchRequest,
-                     string_sort_of)
+                     SplitSearchError, string_sort_of)
 from .plan import (BucketAggExec, CompositeAggExec, MetricAggExec,
                    lower_request, predicate_only_slots)
 from ..ops.topk import MISSING_VALUE_SENTINEL
@@ -347,9 +353,17 @@ def execute_prepared_split(
     plan: Any,
     device_arrays: list,
     device=None,
+    threshold_box=None,
+    fault_injector=None,
 ) -> LeafSearchResponse:
     """Stage 2: the leaf program and its single packed readback, decoded
-    into hits and mergeable aggregation states."""
+    into hits and mergeable aggregation states. Work that spans two chunks
+    runs as a resumable chunked scan instead (search/chunkexec.py):
+    cancellable and preemptable at every chunk boundary, with cross-chunk
+    early termination and threshold tightening fed by `threshold_box`;
+    `fault_injector` reaches its `kernel.chunk_yield` and
+    `kernel.preempt_park` points. A scan cancelled mid-split answers with
+    the chunks it merged and a non-retryable cancel failure."""
     ambient = current_deadline()
     if ambient is not None:
         # shed before launching a program whose result nobody can use; the
@@ -365,7 +379,17 @@ def execute_prepared_split(
     if plan.threshold_slot >= 0:
         SEARCH_KERNEL_THRESHOLD_TOTAL.inc()
         profile_add("kernel_threshold_pushdowns")
-    result = execute_plan(plan, k, device_arrays, device)
+    # fused splits register with the preempt gate too: their presence is
+    # what tells a running chunked scan that higher-class work is waiting
+    with PREEMPT_GATE.running(effective_tenant().priority):
+        result = maybe_execute_chunked(plan, k, device_arrays, device,
+                                       threshold_box=threshold_box,
+                                       fault_injector=fault_injector)
+        if result is None:
+            result = execute_plan(plan, k, device_arrays, device)
+    # cancelled mid-scan with partial_on_cancel: keep the chunks already
+    # merged, and flag the split so the response carries the cancel
+    partial_cancel = bool(result.get("partial"))
 
     count = result["count"]
     if getattr(plan, "count_override", None) is not None:
@@ -438,9 +462,16 @@ def execute_prepared_split(
     return LeafSearchResponse(
         num_hits=count,
         partial_hits=partial_hits,
+        # a partial-on-cancel split still counts as successful (its hits
+        # are real and mergeable); the cancel failure is what marks the
+        # response cancelled without tripping the every-split-failed guard
         num_attempted_splits=1,
         num_successful_splits=1,
-        failed_splits=[],
+        failed_splits=([SplitSearchError(
+            split_id=split_id,
+            error="query cancelled: progressive partial results up to the "
+                  "last completed chunk boundary",
+            retryable=False)] if partial_cancel else []),
         intermediate_aggs=intermediate_aggs,
         resource_stats={"cpu_micros": elapsed},
     )

@@ -5,8 +5,10 @@ Role of the reference's `SearchService` trait + `SearchServiceImpl`
 `single_doc_mapping_leaf_search` (`leaf.rs:1887`): search a batch of splits
 of one index on this node — split reordering for pruning
 (`CanSplitDoBetter`), the three cache tiers, per-split execution with
-byte-exact HBM admission over device-resident columns, and partial failure
-collection.
+byte-exact HBM admission over device-resident columns (each split's
+program may run as a resumable chunked scan, search/chunkexec.py, fed the
+query's threshold box and the context's fault injector), and partial
+failure collection.
 
 The SearcherContext owns the caches (readers, resident columns per split,
 leaf responses, predicate masks, partial aggregations) and the admission
@@ -784,22 +786,28 @@ class SearchService:
                     device=context.device)
                 response = execute_prepared_split(
                     search_request, doc_mapper, reader, split.split_id,
-                    plan, device_arrays, context.device)
+                    plan, device_arrays, context.device,
+                    threshold_box=threshold,
+                    fault_injector=context.fault_injector)
                 if cache_ctx is not None and cache_ctx["agg_hits"]:
                     # Tier B hits join the response BEFORE the leaf-cache
                     # put and the merge — the cached LeafSearchResponse
                     # must be complete, and the collector merges by name
                     response.intermediate_aggs.update(cache_ctx["agg_hits"])
-                self._fill_split_caches(search_request, split, plan,
-                                        device_arrays, response, cache_ctx,
-                                        owner=owner)
-                if plan.threshold_slot < 0:
-                    # a threshold-pushdown response may have its hit list
-                    # truncated below k — correct for THIS query's merge,
-                    # poison for a future query with a lower threshold
-                    key = canonical_request_key(
-                        split.split_id, search_request, split.time_range)
-                    context.leaf_cache.put(key, response)
+                # a chunked scan cancelled mid-split answers with the chunks
+                # it merged (and a cancel failure): no tier may keep that
+                if not response.failed_splits:
+                    self._fill_split_caches(search_request, split, plan,
+                                            device_arrays, response,
+                                            cache_ctx, owner=owner)
+                    if plan.threshold_slot < 0:
+                        # a threshold-pushdown response may have its hit
+                        # list truncated below k — correct for THIS query's
+                        # merge, poison for a future query with a lower
+                        # threshold
+                        key = canonical_request_key(
+                            split.split_id, search_request, split.time_range)
+                        context.leaf_cache.put(key, response)
                 collector.add_leaf_response(response)
                 if threshold is not None:
                     threshold.update(collector.sort_value_threshold())

@@ -772,3 +772,73 @@ def test_eviction_lowers_memory_allocated(cuda_device, monkeypatch):
     assert len(drops) >= 3
     for held, freed in drops:
         assert held > 0 and freed >= held, drops
+
+
+def _chunk_plan(reader, query, aggs=(), **kw):
+    """A lowered plan and its arrays staged on the card."""
+    from quickwit_tpu_torch.search.leaf import warmup_device_arrays
+    plan = lower_request(query, HDFS_MAPPER, reader, list(aggs), **kw)
+    arrays, _, _ = warmup_device_arrays(reader, plan, device="cuda")
+    return plan, arrays
+
+
+@pytest.mark.gpu
+def test_posting_chunked_scan_launches_once_per_chunk(cuda_device):
+    """A score-sorted posting-mode scan runs one `score_topk` launch per
+    chunk, each on a view of the staged ids/tfs at a 128-lane offset, and
+    answers like the fused call on the card and the chunked scan on the
+    CPU."""
+    from quickwit_tpu_torch.search import chunkexec
+    storage = RamStorage(Uri.parse("ram:///cuda-chunked"))
+    storage.put("s.split", synthetic_hdfs_split(30_720, seed=7))
+    reader = SplitReader(storage, "s.split")
+    plan, arrays = _chunk_plan(reader, Term("severity_text", "ERROR"))
+    mode, total, align = chunkexec.chunk_mode(plan)
+    span = 1024
+    n_chunks = len(chunkexec.chunk_spans(total, span, align))
+    assert mode == "posting" and n_chunks >= 3
+    before = score_topk.launches
+    chunked = chunkexec.execute_plan_chunked(plan, 10, arrays, cuda_device,
+                                             span=span)
+    assert score_topk.launches - before == n_chunks
+    fused = executor.execute_plan(plan, 10, arrays, cuda_device)
+    cpu = chunkexec.execute_plan_chunked(
+        plan, 10, [torch.from_numpy(np.array(a)) for a in plan.arrays],
+        "cpu", span=span)
+    for want in (fused, cpu):
+        assert chunked["count"] == want["count"] > 0
+        for key in ("sort_values", "doc_ids", "scores"):
+            np.testing.assert_array_equal(_bits(chunked[key]),
+                                          _bits(want[key]), err_msg=key)
+
+
+@pytest.mark.gpu
+def test_dense_chunked_scan_on_cuda_matches_fused(cuda_device):
+    """A dense-mode scan (c2's Bool root sorted by timestamp, with the
+    flagship's aggregations) over four chunks on the card, its posting ids
+    rebased on the device, equals the fused program on the card."""
+    from quickwit_tpu_torch.query.aggregations import parse_aggs
+    from quickwit_tpu_torch.search import chunkexec
+    storage = RamStorage(Uri.parse("ram:///cuda-chunked-dense"))
+    storage.put("s.split", synthetic_hdfs_split(30_720, seed=7))
+    reader = SplitReader(storage, "s.split")
+    query = Bool(must=(Term("severity_text", "ERROR"),),
+                 should=(Term("body", body_term(3)),
+                         Term("body", body_term(7))))
+    aggs = parse_aggs({"per_day": {"date_histogram": {
+        "field": "timestamp", "fixed_interval": "1d"},
+        "aggs": {"t": {"stats": {"field": "tenant_id"}}}},
+        "sev": {"terms": {"field": "severity_text", "size": 10}}})
+    plan, arrays = _chunk_plan(reader, query, aggs,
+                               sort_field="timestamp", sort_order="desc")
+    mode, total, align = chunkexec.chunk_mode(plan)
+    assert mode == "dense" and len(chunkexec.chunk_spans(
+        total, 8192, align)) == 4
+    chunked = chunkexec.execute_plan_chunked(plan, 100, arrays, cuda_device,
+                                             span=8192)
+    fused = executor.execute_plan(plan, 100, arrays, cuda_device)
+    assert chunked["count"] == fused["count"] > 0
+    for key in ("sort_values", "doc_ids", "scores"):
+        np.testing.assert_array_equal(_bits(chunked[key]), _bits(fused[key]),
+                                      err_msg=key)
+    _close_tree(fused["aggs"], chunked["aggs"])
