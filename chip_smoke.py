@@ -12,7 +12,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             the slice's shape and at the edge cases (ties across the whole
             persistent grid, scores rising with the index, misaligned
             views, 200 calls back to back, two streams at once); valid
-            winners must be exact, and each call must launch once.
+            winners must be exact, and each call must launch once. Then the
+            lane kernel (`score_topk_lanes`) for Q in {1, 2, 5, 16} and k
+            in {10, 64}, over lanes of unequal length, misaligned views and
+            an all-invalid lane, bit for bit against its plain version and
+            against one solo launch per lane, and 100 launches back to
+            back with the lane count moving.
 3. split  : build a hdfs-logs split with the port's own generator (10M docs,
             seed 7 by default, the reference's split size).
 4. slice  : run `leaf_search_single_split` on `cuda` for the flagship request
@@ -148,6 +153,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             bytes staged per warm call, the boundary interval's p50/p90,
             the host chunk-plan time of c2, profiler windows, and
             score_topk at the chunk shape (P = 131,072).
+10. stacking: query stacking (`search/batcher.py`, the executor's
+            stacked and convoy dispatch, the chunked group scan), with the
+            counters zeroed again; every comparison and timing launch is
+            counted apart. Each lane must equal its solo `execute_plan` on
+            the card, a stacked call must be one program with 0 bytes
+            staged and no solo `score_topk` launch:
+            - a rare-term group: the 8 body terms of the hdfs split's most
+              common padded posting length, top-10 by BM25 (one
+              `score_topk_lanes` launch against 8 solo launches), and the
+              convoy under QW_DISABLE_QBATCH=1 (4 copies of one such term
+              through `dispatch_plan_multi`);
+            - c2_bool_range_top100 over 4 windows [day d, day d + 3),
+              d = 0..3 (one dashboard panel over 4 time ranges), then with
+              lane 1 masked;
+            - c5's percentiles over 4 span_start_timestamp windows on the
+              otel split;
+            - the reference's two stacking faults: a same-named range agg
+              over other bounds (hdfs) and c4 at slop 0 and slop 2 in one
+              group (phase 7's split where the two pad to one length, else
+              a 20,000-doc stackoverflow split);
+            - the chunked group scan: 8 rare terms whose postings span 3+
+              chunks of 128 (one lane launch per chunk), lane 0 cancelled
+              at the first boundary, and c2's 4 windows as a dense group
+              on a 30,720-doc hdfs split at 8,192 docs per chunk (at 10M
+              docs the host chunk-plan rebase alone costs ~43 ms per chunk
+              per lane);
+            - `SearchService.leaf_search` from 8 threads over one split id,
+              the rare terms, the first leader held at `batcher.dispatch`
+              until all have entered; each response equal to
+              `leaf_search_single_split` on the card, a group formed.
+            Then per group, 20 warm iterations in turns: the stacked call
+            against its Q solo calls back to back (wall p50/p90), profiler
+            windows of both, and `score_topk_lanes` at the rare-term shape
+            (per call, graph replay, Q solo launches by graph replay, the
+            plain version, one `torch.topk` over [Q, P] scores, the bound).
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -363,6 +403,74 @@ def check_score_topk(torch, kernels, dev) -> float:
         compare_winners(torch, b, other_want, other_valid, 64)
     say("kernel score_topk two_streams: 20 pairs of calls on the default "
         "and a second stream, all equal to the plain version")
+    return worst
+
+
+def lane_cases(torch, q, seed, num_docs, dev):
+    """`q` lanes for the lane kernel: unequal lengths (3 postings to 1M),
+    lane 1 all invalid, lanes 2 and 5 views past a 16-byte boundary."""
+    lengths = [1_000_000, 1024, 4097, 3, 131_072, 5001, 700, 64_000]
+    lanes = []
+    for i in range(q):
+        ids, tfs, norms, idf, avg = score_topk_case(
+            torch, lengths[i % len(lengths)] + i, seed + i, num_docs,
+            all_invalid=(i == 1))
+        ids, tfs, norms = ids.to(dev), tfs.to(dev), norms.to(dev)
+        if i % 3 == 2:
+            ids, tfs = misaligned(torch, ids, 1), misaligned(torch, tfs, 3)
+        lanes.append((ids, tfs, norms, np_f32(idf * (1 + 0.1 * i)),
+                      np_f32(avg + i), num_docs))
+    return lanes
+
+
+def np_f32(x):
+    import numpy as np
+    return np.float32(x)
+
+
+def check_score_topk_lanes(torch, st, dev) -> float:
+    """The lane kernel against its plain version and against one solo
+    launch per lane, bit for bit (values and indices, dead lanes
+    included), for Q in {1, 2, 5, 16} and k in {10, 64} (both NS
+    instantiations), over unequal, misaligned and all-invalid lanes; then
+    100 launches back to back with the lane count moving."""
+    num_docs = 10_000_000
+    worst = 0.0
+    for q in (1, 2, 5, 16):
+        for k in (10, 64):
+            lanes = lane_cases(torch, q, 100 * q + k, num_docs, dev)
+            before = st.score_topk_lanes.launches
+            vals, idx = st.score_topk_lanes(lanes, k)
+            if st.score_topk_lanes.launches != before + 1:
+                raise AssertionError(f"lanes q={q} k={k}: not one launch")
+            want = st.score_topk_lanes_reference(lanes, k)
+            solo = [st.score_topk(*lane, k) for lane in lanes]
+            torch.cuda.synchronize()
+            for row, lane in enumerate(lanes):
+                if not (torch.equal(vals[row], solo[row][0])
+                        and torch.equal(idx[row], solo[row][1])):
+                    raise AssertionError(f"lanes q={q} k={k} row {row}: "
+                                         "differs from its solo launch")
+                num_valid = int(((lane[1] > 0) & (lane[0] < num_docs)).sum())
+                worst = max(worst, compare_winners(
+                    torch, (vals[row], idx[row]),
+                    (want[0][row], want[1][row]), num_valid, k))
+            say(f"kernel score_topk_lanes q={q} k={k}: P="
+                f"{[lane[0].shape[0] for lane in lanes]} equal_to_solo="
+                "True equal_to_plain=True")
+    lanes = lane_cases(torch, 16, 7, num_docs, dev)
+    want = [st.score_topk(*lane, 10) for lane in lanes]
+    outs = [st.score_topk_lanes(lanes if i % 2 else lanes[:3], 10)
+            for i in range(100)]
+    torch.cuda.synchronize()
+    for vals, idx in outs:
+        for row in range(vals.shape[0]):
+            if not (torch.equal(vals[row], want[row][0])
+                    and torch.equal(idx[row], want[row][1])):
+                raise AssertionError("lanes back_to_back: a launch left "
+                                     "its grid state dirty")
+    say("kernel score_topk_lanes back_to_back: 100 launches of 16 and 3 "
+        "lanes on one stream, all equal to solo launches")
     return worst
 
 
@@ -1766,6 +1874,489 @@ def check_chunked(torch, st, mods, reader, otel_reader, reqs, storage,
     finally:
         ce.CHUNKING, ce.CHUNK_SIZER = saved
 
+# --------------------------------------------------------------------------
+# phase 10: query stacking
+
+DENSE_GROUP_DOCS = 30_720
+DENSE_GROUP_SPAN = 8192
+
+
+def rare_term_group(reader, n, min_len=0):
+    """`n` body terms of the padded posting length (at least `min_len`)
+    that the most terms share, so that their plans stack. Returns
+    [(term, df, P)]."""
+    import numpy as np
+    td = reader.term_dict("body")
+    lengths, counts = np.unique(td.post_lens, return_counts=True)
+    counts[(lengths < min_len) | (counts < n)] = 0
+    if counts.max() == 0:
+        raise AssertionError(f"no {n} body terms share a padded length")
+    length = lengths[np.argmax(counts)]
+    picks = np.flatnonzero(td.post_lens == length)[:n]
+    return [(td.blob[td.offsets[i]:td.offsets[i + 1]].decode(),
+             int(td.dfs[i]), int(td.post_lens[i])) for i in picks]
+
+
+def same_result(want, got, label) -> None:
+    """Two leaf-program result dicts: count, sort values, doc ids and f32
+    scores bit for bit, aggregation states as `assert_aggs_close` holds
+    them (f64 sums to rtol 1e-12, everything else exactly)."""
+    import numpy as np
+    if got is None or want is None:
+        raise AssertionError(f"{label}: a result is missing")
+    if int(got["count"]) != int(want["count"]):
+        raise AssertionError(f"{label}: count {got['count']} vs "
+                             f"{want['count']}")
+    for key in ("sort_values", "sort_values2", "doc_ids", "scores"):
+        w, g = want[key], got[key]
+        if (w is None) != (g is None) or (w is not None and (
+                np.asarray(w).dtype != np.asarray(g).dtype
+                or np.asarray(w).tobytes() != np.asarray(g).tobytes())):
+            raise AssertionError(f"{label}: {key} differs")
+    assert_aggs_close(list(want["aggs"]), list(got["aggs"]), f"{label} aggs")
+
+
+class HoldFirstLeader:
+    """A fault injector that holds the first batcher leader at
+    `batcher.dispatch` until `riders` queries have entered the batcher
+    (polled, 20 s at most)."""
+
+    def __init__(self, batcher, riders):
+        self.batcher, self.riders = batcher, riders
+        self.held = False
+        self.waited_s = 0.0
+
+    def perturb(self, operation):
+        if operation != "batcher.dispatch" or self.held:
+            return
+        self.held = True
+        t0 = time.perf_counter()
+        while (self.batcher.num_queries < self.riders
+               and time.perf_counter() - t0 < 20.0):
+            time.sleep(0.001)
+        self.waited_s = time.perf_counter() - t0
+        if self.batcher.num_queries < self.riders:
+            raise AssertionError("stacking service: the riders never queued")
+
+
+def check_stacking(torch, st, m, reader, otel_reader, open_so_reader,
+                   storage, num_docs, dev, iters, label, here, flush) -> dict:
+    """Phase 10: stacked groups, a convoy, the two reference stacking
+    faults, the chunked group scan and the service's batcher on the card,
+    each lane against its solo call; then the timings. The path's launch
+    counts start at 0 and leave out every comparison and timing launch.
+    Returns the path's launches of both kernels and the lane kernel's row."""
+    import numpy as np
+    ex, ce, leaf, metrics = m.ex, m.chunkexec, m.leaf, m.metrics
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def counter(name):
+        return getattr(metrics, name).get()
+
+    def stage(split_reader, mapper, req):
+        plan = leaf.prepare_plan_only(req, mapper, split_reader, "split-0")
+        arrays, _, _ = leaf.warmup_device_arrays(split_reader, plan,
+                                                 device=dev)
+        return plan, arrays
+
+    def solo_all(staged, k):
+        return [ex.execute_plan(p, k, a, dev) for p, a in staged]
+
+    def stacked(staged, k, valid=None):
+        return ex.readback_plan_stacked(ex.dispatch_plan_stacked(
+            [p for p, _ in staged], k, [a for _, a in staged], valid=valid,
+            device=dev))
+
+    def check_group(name, staged, k, valid=None, lanes_launches=None):
+        digests = {p.structure_digest(k) for p, _ in staged}
+        if len(digests) != 1:
+            raise AssertionError(f"stacking {name}: lanes differ in "
+                                 "structure")
+        k0 = st.score_topk.launches
+        solos = solo_all(staged, k)
+        solo_launches = st.score_topk.launches - k0
+        st.score_topk.launches = k0
+        k0, l0 = counts()
+        p0 = counter("SEARCH_KERNEL_LAUNCHES_TOTAL")
+        s0 = counter("STAGING_BYTES_TOTAL")
+        got = stacked(staged, k, valid)
+        torch.cuda.synchronize()
+        seen = {"programs": int(counter("SEARCH_KERNEL_LAUNCHES_TOTAL") - p0),
+                "score_topk": st.score_topk.launches - k0,
+                "score_topk_lanes": st.score_topk_lanes.launches - l0,
+                "staged_bytes": int(counter("STAGING_BYTES_TOTAL") - s0),
+                "solo_score_topk": solo_launches}
+        for lane, (g, w) in enumerate(zip(got, solos)):
+            if valid is not None and not valid[lane]:
+                if g is not None:
+                    raise AssertionError(f"stacking {name}: masked lane "
+                                         f"{lane} came back")
+                continue
+            same_result(w, g, f"stacking {name} lane {lane}")
+        say(f"stacking {name}: lanes={len(staged)} valid="
+            f"{valid if valid is not None else 'all'} {json.dumps(seen)} "
+            f"equal_to_solo=True")
+        if (seen["programs"] != 1 or seen["score_topk"] != 0
+                or seen["staged_bytes"] != 0
+                or (lanes_launches is not None
+                    and seen["score_topk_lanes"] != lanes_launches)):
+            raise AssertionError(f"stacking {name}: {seen}")
+        return got, solos
+
+    saved = (ce.CHUNKING, ce.CHUNK_SIZER)
+    ce.CHUNKING, ce.CHUNK_SIZER = ce.ChunkConfig(), ce._ChunkSizer()
+    ce.CHUNKING.set(enabled=False)
+    try:
+        st.score_topk.launches = st.score_topk_lanes.launches = 0
+        groups = {}
+
+        # a. rare terms: one lane-kernel launch for 8 posting-space lanes
+        rare = rare_term_group(reader, 8)
+        say("stacking rare_terms: " + json.dumps(
+            [{"term": t, "df": df, "P": p} for t, df, p in rare]))
+        rare_reqs = [m.SearchRequest(index_ids=["hdfs-logs"],
+                                     query_ast=m.Term("body", t),
+                                     max_hits=10) for t, _, _ in rare]
+        groups["rare_terms"] = ([stage(reader, m.HDFS_MAPPER, r)
+                                 for r in rare_reqs], 10)
+        check_group("rare_terms", *groups["rare_terms"], lanes_launches=1)
+
+        # the convoy under the kill switch: 4 copies of one such term
+        os.environ["QW_DISABLE_QBATCH"] = "1"
+        try:
+            plan, arrays = groups["rare_terms"][0][0]
+            want = aside(ex.execute_plan, plan, 10, arrays, dev)
+            l0 = st.score_topk_lanes.launches
+            got = ex.readback_plan_multi(ex.dispatch_plan_multi(
+                plan, 10, arrays, [plan.scalars] * 4, device=dev))
+            for lane, g in enumerate(got):
+                same_result(want, g, f"stacking convoy lane {lane}")
+            say(f"stacking convoy (QW_DISABLE_QBATCH=1): 4 copies of "
+                f"body:{rare[0][0]} score_topk_lanes="
+                f"{st.score_topk_lanes.launches - l0} equal_to_solo=True")
+        finally:
+            del os.environ["QW_DISABLE_QBATCH"]
+
+        # b. c2 over 4 time windows (doc space), then a masked lane
+        day_us, t0_us = 86400 * 10**6, 1_600_000_000 * 10**6
+
+        def c2_window(d, **kw):
+            return m.SearchRequest(index_ids=["hdfs-logs"], query_ast=m.Bool(
+                must=(m.Term("severity_text", "ERROR"),),
+                should=(m.Term("body", m.body_term(3)),
+                        m.Term("body", m.body_term(7))),
+                filter=(m.Range("timestamp",
+                                lower=m.RangeBound(t0_us + d * day_us, True),
+                                upper=m.RangeBound(t0_us + (d + 3) * day_us,
+                                                   False)),)),
+                max_hits=100, **kw)
+
+        groups["c2_windows"] = ([stage(reader, m.HDFS_MAPPER, c2_window(d))
+                                 for d in range(4)], 100)
+        check_group("c2_windows", *groups["c2_windows"], lanes_launches=0)
+        check_group("c2_windows_masked", *groups["c2_windows"],
+                    valid=[True, False, True, True], lanes_launches=0)
+
+        # c. c5's percentiles over 4 span_start_timestamp windows
+        ot0_us = 1_700_000_000 * 10**6
+        pctl = {"percentiles": {"field": "span_duration_micros",
+                                "percents": [50, 95, 99]}}
+        otel_reqs = [m.SearchRequest(
+            index_ids=["otel-traces"], query_ast=m.Bool(
+                must=(m.MatchAll(),),
+                filter=(m.Range("span_start_timestamp",
+                                lower=m.RangeBound(
+                                    ot0_us + 600 * d * 10**6, True),
+                                upper=m.RangeBound(
+                                    ot0_us + (600 * d + 1800) * 10**6,
+                                    False)),)),
+            max_hits=0, aggs={"latency": pctl}) for d in range(4)]
+        groups["c5_windows"] = ([stage(otel_reader, m.OTEL_BENCH_MAPPER, r)
+                                 for r in otel_reqs], 0)
+        check_group("c5_windows", *groups["c5_windows"], lanes_launches=0)
+
+        # d. the two reference stacking faults: a same-named range agg
+        # over other bounds, and c4 at slop 0 and 2, each lane its own
+        range_staged = [stage(reader, m.HDFS_MAPPER, m.SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=m.Term("severity_text",
+                                                      "ERROR"),
+            max_hits=5, aggs={"by_tenant": {"range": {
+                "field": "tenant_id", "ranges": ranges}}}))
+            for ranges in ([{"to": 1}, {"from": 2}],
+                           [{"to": 3}, {"from": 3}])]
+        _, t_stacked = ex.stacked_slot_split([p for p, _ in range_staged])
+        agg = range_staged[0][0].aggs[0]
+        if not {agg.froms_slot, agg.tos_slot} <= set(t_stacked):
+            raise AssertionError("stacking range_bounds: bounds shared")
+        got, _ = check_group("range_bounds", range_staged, 5)
+        say("stacking range_bounds: counts per lane "
+            f"{[list(map(int, g['aggs'][0]['counts'])) for g in got]}")
+
+        def c4(slop):
+            return m.SearchRequest(index_ids=["stackoverflow"],
+                                   query_ast=m.FullText(
+                                       "body", "t000010 t000011",
+                                       mode="phrase", slop=slop),
+                                   max_hits=20)
+
+        so_reader = open_so_reader()
+        phrase_staged = [stage(so_reader, m.SO_MAPPER, c4(s)) for s in (0, 2)]
+        phrase_where = "the phase 7 split"
+        if len({p.structure_digest(20) for p, _ in phrase_staged}) != 1:
+            # at this size the two phrases' matched postings pad to other
+            # lengths, so they cannot share a group; the reference's fault
+            # needs a group, so take the 20,000-doc split of the CPU tests
+            small = m.RamStorage(m.Uri.parse("ram:///chip_smoke_so_small"))
+            small.put("so.split", m.synthetic_stackoverflow_split(
+                20_000, seed=11))
+            so_reader = m.SplitReader(small, "so.split")
+            phrase_staged = [stage(so_reader, m.SO_MAPPER, c4(s))
+                             for s in (0, 2)]
+            phrase_where = ("a 20,000-doc split (seed 11: at the phase 7 "
+                            "size the two phrases pad to other lengths)")
+        ids_slot = phrase_staged[0][0].root.ids_slot
+        if ids_slot not in ex.stacked_slot_split(
+                [p for p, _ in phrase_staged])[1]:
+            raise AssertionError("stacking phrase_slop: postings shared")
+        got, _ = check_group("phrase_slop", phrase_staged, 20,
+                             lanes_launches=1)
+        say(f"stacking phrase_slop on {phrase_where}: hits per lane "
+            f"{[int(g['count']) for g in got]}")
+
+        # e. the chunked group scan: posting mode (rare terms whose padded
+        # length spans 3+ chunks of 128) and dense mode (c2's windows on a
+        # 30,720-doc split: at 10M docs the host chunk-plan rebase alone is
+        # ~43 ms per chunk per lane, PERF.md §5, ~1.7 s per call for 4
+        # lanes)
+        ce.CHUNKING.set(enabled=True)
+        chunk_terms = rare_term_group(reader, 8, min_len=3 * 128)
+        chunk_staged = [stage(reader, m.HDFS_MAPPER, m.SearchRequest(
+            index_ids=["hdfs-logs"], query_ast=m.Term("body", t),
+            max_hits=10)) for t, _, _ in chunk_terms]
+        plans = [p for p, _ in chunk_staged]
+        _, total, align = ce.chunk_mode(plans[0])
+        n_chunks = len(ce.chunk_spans(total, align, align))
+        solos = aside(solo_all, chunk_staged, 10)
+        d0 = counter("CHUNK_DISPATCHES_TOTAL")
+        l0 = st.score_topk_lanes.launches
+        got = ce.execute_group_chunked(plans, 10,
+                                       [a for _, a in chunk_staged],
+                                       span=align, device=dev)
+        seen = {"chunks": n_chunks,
+                "dispatched": int(counter("CHUNK_DISPATCHES_TOTAL") - d0),
+                "score_topk_lanes": st.score_topk_lanes.launches - l0}
+        for lane, (g, w) in enumerate(zip(got, solos)):
+            same_result(w, g, f"chunked group lane {lane}")
+        say(f"stacking chunked posting group: terms="
+            f"{[(t, df, p) for t, df, p in chunk_terms]} {json.dumps(seen)} "
+            "equal_to_fused=True")
+        if not (n_chunks >= 3 and seen["dispatched"] == n_chunks
+                and seen["score_topk_lanes"] == n_chunks):
+            raise AssertionError(f"stacking chunked group: {seen}")
+        token = m.deadline.CancellationToken()
+        got = ce.execute_group_chunked(
+            plans, 10, [a for _, a in chunk_staged], span=align, device=dev,
+            cancels=[token] + [None] * (len(plans) - 1),
+            fault_injector=CancelAtBoundary(token))
+        cut = got[0]
+        if not (isinstance(cut, m.deadline.CancelledQuery)
+                or cut.get("partial")):
+            raise AssertionError("stacking chunked cancel: lane 0 ran on")
+        for lane in range(1, len(plans)):
+            same_result(solos[lane], got[lane], f"chunked cancel lane {lane}")
+        say("stacking chunked cancel: lane 0 "
+            + ("partial count=" + str(cut["count"]) if isinstance(cut, dict)
+               else "cancelled") + f" of {solos[0]['count']}; lanes 1-"
+            f"{len(plans) - 1} equal_to_fused=True")
+        small = m.RamStorage(m.Uri.parse("ram:///chip_smoke_dense_group"))
+        small.put("s.split", m.synthetic_hdfs_split(DENSE_GROUP_DOCS, seed=7))
+        small_reader = m.SplitReader(small, "s.split")
+        dense_staged = [stage(small_reader, m.HDFS_MAPPER, c2_window(d))
+                        for d in range(4)]
+        dplans = [p for p, _ in dense_staged]
+        _, dtotal, dalign = ce.chunk_mode(dplans[0])
+        d_chunks = len(ce.chunk_spans(dtotal, DENSE_GROUP_SPAN, dalign))
+        solos = aside(solo_all, dense_staged, 100)
+        d0 = counter("CHUNK_DISPATCHES_TOTAL")
+        got = ce.execute_group_chunked(dplans, 100,
+                                       [a for _, a in dense_staged],
+                                       span=DENSE_GROUP_SPAN, device=dev)
+        for lane, (g, w) in enumerate(zip(got, solos)):
+            same_result(w, g, f"chunked dense group lane {lane}")
+        dispatched = int(counter("CHUNK_DISPATCHES_TOTAL") - d0)
+        say(f"stacking chunked dense group: c2 windows x4 on "
+            f"{DENSE_GROUP_DOCS} docs, chunks={d_chunks} dispatched="
+            f"{dispatched} equal_to_fused=True")
+        if d_chunks < 3 or dispatched != d_chunks:
+            raise AssertionError("stacking chunked dense group: "
+                                 f"{dispatched} of {d_chunks}")
+        ce.CHUNKING.set(enabled=False)
+
+        # f. through the service: 8 concurrent calls over one split id
+        resolver = m.StorageResolver()
+        resolver.register(m.Protocol.RAM, lambda _uri: storage)
+        data_len = storage.file_num_bytes("hdfs.split")
+        split = m.models.SplitIdAndFooter("hdfs", "ram:///chip_smoke",
+                                          data_len, num_docs=num_docs)
+        ctx = m.svc_mod.SearcherContext(storage_resolver=resolver,
+                                        device=dev)
+        svc = m.svc_mod.SearchService(ctx)
+        hold = HoldFirstLeader(ctx.query_batcher, len(rare_reqs))
+        ctx.query_batcher.fault_injector = hold
+        results = [None] * len(rare_reqs)
+
+        def rider(i):
+            try:
+                results[i] = svc.leaf_search(m.models.LeafSearchRequest(
+                    search_request=rare_reqs[i], index_uid="hdfs-logs:0",
+                    doc_mapping=m.HDFS_MAPPER.to_dict(), splits=[split]))
+            except Exception as exc:  # noqa: BLE001 - checked below
+                results[i] = exc
+
+        import threading
+        g0 = counter("QBATCH_GROUPS_TOTAL")
+        hist = metrics.QBATCH_QUERIES_PER_DISPATCH
+        h0 = list(hist._counts.get((), [0] * len(hist.buckets)))
+        threads = [threading.Thread(target=rider, args=(i,), daemon=True)
+                   for i in range(len(rare_reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("stacking service: a rider never returned")
+        for i, got in enumerate(results):
+            if isinstance(got, Exception):
+                raise got
+            want = aside(m.leaf_search_single_split, rare_reqs[i],
+                         m.HDFS_MAPPER, reader, "hdfs", device=dev)
+            if response_key(got) != response_key(want) or got.failed_splits:
+                raise AssertionError(f"stacking service rider {i}: differs "
+                                     "from leaf_search_single_split")
+        h1 = hist._counts.get((), [0] * len(hist.buckets))
+        groups_formed = counter("QBATCH_GROUPS_TOTAL") - g0
+        say(f"stacking service: riders={len(rare_reqs)} leader_held_s="
+            f"{hold.waited_s:.4f} qw_qbatch_groups_total+="
+            f"{groups_formed:.0f} qw_qbatch_queries_per_dispatch="
+            + json.dumps({f"le_{b:g}": c1 - c0 for b, c0, c1
+                          in zip(hist.buckets, h0, h1)})
+            + f" dispatches={ctx.query_batcher.num_dispatches} "
+            "equal_to_leaf_search_single_split=True")
+        if groups_formed < 1:
+            raise AssertionError("stacking service: no group formed")
+        path = {"score_topk": st.score_topk.launches,
+                "score_topk_lanes": st.score_topk_lanes.launches}
+        say(f"stacking launches: {json.dumps(path)}")
+        if path["score_topk_lanes"] < 1:
+            raise AssertionError("score_topk_lanes never launched on the "
+                                 "stacking path")
+
+        # g. timing, 20 warm iterations in turns per group
+        timed_iters = iters
+        for name, (staged, k) in groups.items():
+            q = len(staged)
+
+            def one_stacked(staged=staged, k=k):
+                stacked(staged, k)
+
+            def q_solos(staged=staged, k=k):
+                solo_all(staged, k)
+
+            walls, solo_walls = [], []
+            aside(one_stacked)
+            aside(q_solos)
+            for _ in range(timed_iters):
+                t0 = time.perf_counter()
+                aside(one_stacked)
+                t1 = time.perf_counter()
+                aside(q_solos)
+                walls.append((t1 - t0) * 1e3)
+                solo_walls.append((time.perf_counter() - t1) * 1e3)
+            os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
+            prof = aside(device_profile, torch, one_stacked, 5, os.path.join(
+                here, "chip_traces", f"trace_stacked_{name}.json"))
+            solo_prof = aside(device_profile, torch, q_solos, 5, os.path.join(
+                here, "chip_traces", f"trace_solos_{name}.json"))
+            say(f"[{label}] stacking timing {name}: Q={q} stacked_p50_ms="
+                f"{pct(walls, 0.5):.4f} stacked_p90_ms={pct(walls, 0.9):.4f} "
+                f"solo_calls_p50_ms={pct(solo_walls, 0.5):.4f} "
+                f"solo_calls_p90_ms={pct(solo_walls, 0.9):.4f} "
+                f"iters={timed_iters}")
+            say(f"[{label}] profile stacked {name}: {prof}")
+            say(f"[{label}] profile {q} solo calls {name}: {solo_prof}")
+        row, err = aside(lanes_kernel_row, torch, st, m.score_postings,
+                         groups["rare_terms"][0], iters, flush, label)
+        return {"launches": path, "row": row, "err": err}
+    finally:
+        ce.CHUNKING, ce.CHUNK_SIZER = saved
+
+
+def lanes_kernel_row(torch, st, score_postings, staged, iters, flush, label):
+    """score_topk_lanes at the rare-term group's shape: per call and by
+    graph replay, beside the Q solo launches by graph replay, the plain
+    version, one `torch.topk` over the group's [Q, P] precomputed scores,
+    and the bound. Returns (row, max abs error)."""
+    lanes = []
+    for plan, arrays in staged:
+        root = plan.root
+        lanes.append((arrays[root.ids_slot], arrays[root.tfs_slot],
+                      arrays[root.norm_slot], plan.scalars[root.idf_slot],
+                      plan.scalars[root.avg_len_slot], plan.num_docs))
+    q, P = len(lanes), lanes[0][0].shape[0]
+    k = min(10, P)
+    kernel_ms = cuda_ms(torch, lambda: st.score_topk_lanes(lanes, k), iters,
+                        flush)
+    replay_ms = graph_ms(torch, lambda: st.score_topk_lanes(lanes, k),
+                         iters, flush)
+
+    def solos():
+        for lane in lanes:
+            st.score_topk(*lane, k)
+
+    solo_replay_ms = graph_ms(torch, solos, iters, flush)
+    plain_ms = cuda_ms(torch, lambda: st.score_topk_lanes_reference(
+        lanes, k), iters, flush)
+    scores = torch.stack([torch.where(
+        (tfs > 0) & (ids < nd), score_postings(tfs, ids, norms, avg, idf),
+        float("-inf")) for ids, tfs, norms, idf, avg, nd in lanes])
+    library_ms = cuda_ms(torch, lambda: torch.topk(scores, k, dim=1),
+                         iters, flush)
+    got = st.score_topk_lanes(lanes, k)
+    want = st.score_topk_lanes_reference(lanes, k)
+    err = 0.0
+    for row, (ids, tfs, _, _, _, nd) in enumerate(lanes):
+        num_valid = int(((tfs > 0) & (ids < nd)).sum())
+        err = max(err, compare_winners(torch, (got[0][row], got[1][row]),
+                                       (want[0][row], want[1][row]),
+                                       num_valid, k))
+    # bytes: each lane's ids + tfs + one gathered norm per posting, read
+    # once (PR 2's model), and the [Q, k] (f32, i64) winners written once
+    nbytes = q * (12 * P + 12 * k)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = 11 * q * P / H100_F32_OPS_PER_S * 1e3
+    say(f"[{label}] kernel score_topk_lanes @rare_terms: Q={q} P={P} k={k} "
+        f"ms={kernel_ms:.5f} graph_replay_ms={replay_ms:.5f} "
+        f"q_solo_graph_replay_ms={solo_replay_ms:.5f} plain_ms="
+        f"{plain_ms:.5f} library_ms(torch.topk over [Q, P] scores)="
+        f"{library_ms:.5f} bound_ms={max(bytes_ms, ops_ms):.7f} "
+        f"(bytes={nbytes}, ops_ms={ops_ms:.7f}) max_abs_err={err}")
+    return {"at": "rare_terms", "Q": q, "P": P, "k": k, "ms": kernel_ms,
+            "graph_replay_ms": replay_ms,
+            "q_solo_graph_replay_ms": solo_replay_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}, err
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1831,6 +2422,7 @@ def main(argv=None) -> int:
 
     # 2. kernels vs plain -------------------------------------------------
     max_abs_err = check_score_topk(torch, st, dev)
+    lanes_err = check_score_topk_lanes(torch, st, dev)
 
     # 3. split ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1988,7 +2580,6 @@ def main(argv=None) -> int:
     rows.append(row)
     max_abs_err = max(max_abs_err, err)
     del flush_buf
-    so_dir.cleanup()
 
     # 8. the node's search service, with the counters zeroed again --------
     service_reqs = {
@@ -2029,6 +2620,31 @@ def main(argv=None) -> int:
     say(f"chunked launches: {json.dumps({'score_topk': chunked['launches']})}"
         f" phase_s={time.perf_counter() - t0:.3f}")
 
+    # 10. query stacking, with the counters zeroed again -------------------
+    t0 = time.perf_counter()
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    from types import SimpleNamespace
+    from quickwit_tpu_torch.search import batcher as batcher_mod
+    stacking = check_stacking(
+        torch, st, SimpleNamespace(
+            ex=ex, chunkexec=chunkexec, leaf=leaf_mod, metrics=metrics,
+            batcher=batcher_mod, svc_mod=svc_mod, models=search_models,
+            deadline=deadline_mod, Protocol=Protocol,
+            StorageResolver=StorageResolver, RamStorage=RamStorage, Uri=Uri,
+            SplitReader=SplitReader, HDFS_MAPPER=HDFS_MAPPER,
+            OTEL_BENCH_MAPPER=OTEL_BENCH_MAPPER, SO_MAPPER=SO_MAPPER,
+            SearchRequest=SearchRequest, Term=Term, Bool=Bool, Range=Range,
+            RangeBound=RangeBound, MatchAll=MatchAll, FullText=FullText,
+            body_term=body_term, synthetic_hdfs_split=synthetic_hdfs_split,
+            synthetic_stackoverflow_split=synthetic_stackoverflow_split,
+            leaf_search_single_split=leaf_search_single_split,
+            score_postings=score_postings),
+        reader, splits["otel"][1], open_so_reader, storage, args.docs, dev,
+        args.iters, label, here, flush)
+    del flush_buf
+    so_dir.cleanup()
+    say(f"stacking phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -2043,7 +2659,8 @@ def main(argv=None) -> int:
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
-                     + chunked["launches"]),
+                     + chunked["launches"]
+                     + stacking["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2051,6 +2668,18 @@ def main(argv=None) -> int:
         "sector_floor_ms": main_row["sector_floor_ms"],
         "library_ms": main_row["library_ms"],
         "shapes": rows,   # each posting-space request, with all of these
+    }, {
+        "name": "score_topk_lanes", "route": "cuda",
+        "source": "quickwit_tpu_torch/csrc/score_topk.cu",
+        "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
+        # the stacking phase's path: the fused groups, the convoy, one per
+        # chunk of the chunked groups and the service's group
+        "launches": stacking["launches"]["score_topk_lanes"],
+        "max_abs_err": max(lanes_err, stacking["err"]),
+        **{key: stacking["row"][key] for key in (
+            "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")},
+        "shapes": [stacking["row"]],
     }]
     say(label)
     say(json.dumps({"kernels": kernels}))

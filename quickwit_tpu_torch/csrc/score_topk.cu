@@ -64,15 +64,27 @@
 //    and ragged tail are read element by element from global memory
 //    instead, so any 4-byte-aligned input works.
 //
+// 4. Lanes. A stacked query group (the JAX program's `vmap` over the
+//    Pallas call, which gains a grid axis) runs as one launch of
+//    `score_topk_lanes_kernel`: a (gx, Q) grid whose row q walks lane q's
+//    tiles with the same block body as the solo kernel (which is the Q = 1
+//    case), its own grid state and candidate region, and writes row q of
+//    the [Q, k] outputs. The lane table (pointers, lengths, the f32
+//    constants of each query) is a `__grid_constant__` kernel parameter,
+//    so no copy precedes the launch. Lanes may differ in length: a block
+//    past its lane's tiles still takes its ticket. A group of small
+//    posting lists is where one launch instead of Q matters most.
+//
 // A past-the-end or invalid posting is never a candidate. List slots that
 // no posting filled carry (-inf, INT_MAX); output indices are clamped into
 // [0, P) so dead lanes (value -inf) still gather safely. Only winners with
 // a finite value are part of the contract.
 //
 // `nvcc -Xptxas -v` for sm_90a: 48 registers for NS = 1 and 40 for
-// NS = 2, 4,224 bytes of static and 25,344 of dynamic shared memory, no
-// stack frame, no spills; 5 blocks of 256 threads fit on an SM (660 on the
-// H100's 132 SMs). chip_smoke.py phase 1 prints the report of each build.
+// NS = 2 (the lane kernel: 40 and 46), 4,224 bytes of static and 25,344 of
+// dynamic shared memory, no stack frame, no spills; 5 blocks of 256
+// threads fit on an SM (660 on the H100's 132 SMs). chip_smoke.py phase 1
+// prints the report of each build.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v (quickwit_tpu_torch/ops/kernels/
@@ -83,6 +95,7 @@
 #include <math_constants.h>
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -350,13 +363,17 @@ __device__ __forceinline__ int tile_end(int p0, int num_postings) {
   return num_postings - p0 <= kTile ? num_postings : p0 + kTile;
 }
 
+// One block's share of a top-k over one posting list: block `bx` of the
+// `gx` blocks that serve this list walks its tiles grid-stride, and the
+// last of them to arrive merges. Both kernels below run it: the solo kernel
+// with its grid, the lane kernel once per lane (grid row blockIdx.y).
 template <int NS>
-__global__ void __launch_bounds__(kThreads)
-score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
-                  const int* __restrict__ norms, int num_postings,
-                  int64_t num_norms, int num_docs, Scalars s, int k,
-                  float* cand_v, int* cand_i, GridState* state,
-                  float* __restrict__ out_vals, int64_t* __restrict__ out_idx) {
+__device__ __forceinline__ void score_topk_block(
+    const int* __restrict__ ids, const int* __restrict__ tfs,
+    const int* __restrict__ norms, int num_postings, int64_t num_norms,
+    int num_docs, const Scalars& s, int k, float* cand_v, int* cand_i,
+    GridState* state, float* __restrict__ out_vals,
+    int64_t* __restrict__ out_idx, unsigned bx, unsigned gx) {
   extern __shared__ __align__(128) int stage_buf[];   // [stage][ids|tfs]
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ float merge_v[kWarps][64];
@@ -403,7 +420,7 @@ score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
   __syncthreads();
   if (t == 0) {
     for (int n = 0; n < kStages; ++n) {
-      const int64_t tile = blockIdx.x + static_cast<int64_t>(n) * gridDim.x;
+      const int64_t tile = bx + static_cast<int64_t>(n) * gx;
       if (tile < num_tiles) load_tile(tile, n);
     }
   }
@@ -411,7 +428,7 @@ score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
   WarpTopK<NS> top;
   top.clear();
   for (int n = 0;; ++n) {
-    const int64_t tile = blockIdx.x + static_cast<int64_t>(n) * gridDim.x;
+    const int64_t tile = bx + static_cast<int64_t>(n) * gx;
     if (tile >= num_tiles) break;
     const int stage = n % kStages;
     const int p0 = static_cast<int>(tile * kTile);
@@ -448,8 +465,8 @@ score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
     }
 
     __syncthreads();   // every thread is done with this stage
-    if (t == 0 && tile + static_cast<int64_t>(kStages) * gridDim.x < num_tiles)
-      load_tile(tile + static_cast<int64_t>(kStages) * gridDim.x, stage);
+    if (t == 0 && tile + static_cast<int64_t>(kStages) * gx < num_tiles)
+      load_tile(tile + static_cast<int64_t>(kStages) * gx, stage);
   }
 
   top.block_merge(merge_v, merge_i, warp, lane, k);
@@ -490,7 +507,7 @@ score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
   __syncthreads();
   if (t == 0) {
     // wraps to 0 on the last arrival, so the next launch finds it reset
-    is_last = atomicInc(&state->ticket, gridDim.x - 1) == gridDim.x - 1;
+    is_last = atomicInc(&state->ticket, gx - 1) == gx - 1;
     if (is_last) __threadfence();   // acquire every block's candidates
   }
   __syncthreads();
@@ -536,17 +553,71 @@ score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
 }
 
 template <int NS>
-cudaError_t query_grid_limit(int* out) {
+__global__ void __launch_bounds__(kThreads)
+score_topk_kernel(const int* __restrict__ ids, const int* __restrict__ tfs,
+                  const int* __restrict__ norms, int num_postings,
+                  int64_t num_norms, int num_docs, Scalars s, int k,
+                  float* cand_v, int* cand_i, GridState* state,
+                  float* __restrict__ out_vals, int64_t* __restrict__ out_idx) {
+  score_topk_block<NS>(ids, tfs, norms, num_postings, num_norms, num_docs, s,
+                       k, cand_v, cand_i, state, out_vals, out_idx,
+                       blockIdx.x, gridDim.x);
+}
+
+// One posting list of a lane launch: its arrays, its lengths and the f32
+// constants of its query. The wrapper's ctypes mirror has this layout.
+struct Lane {
+  const int* ids;
+  const int* tfs;
+  const int* norms;
+  int64_t num_norms;
+  int num_postings;
+  int num_docs;
+  Scalars s;
+};
+static_assert(sizeof(Lane) == 64, "the wrapper's ctypes mirror is 64 bytes");
+
+constexpr int kMaxLanes = 16;
+
+// The whole table rides in the kernel's parameter space (1 KB of the 4 KB
+// a launch may pass): no host-to-device copy precedes a launch, and a CUDA
+// graph captures the table with the launch.
+struct LaneTable {
+  Lane lane[kMaxLanes];
+};
+
+// Q top-k's in one launch: grid row blockIdx.y serves lane q with its own
+// grid state and candidate region, and writes row q of the outputs.
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+score_topk_lanes_kernel(const __grid_constant__ LaneTable table, int k,
+                        float* cands, GridState* states,
+                        float* __restrict__ out_vals,
+                        int64_t* __restrict__ out_idx) {
+  const int q = blockIdx.y;
+  const Lane& lane = table.lane[q];
+  const int64_t per_lane = static_cast<int64_t>(gridDim.x) * k;
+  float* cand_v = cands + 2 * per_lane * q;
+  int* cand_i = reinterpret_cast<int*>(cand_v + per_lane);
+  const int64_t row = static_cast<int64_t>(q) * k;
+  score_topk_block<NS>(lane.ids, lane.tfs, lane.norms, lane.num_postings,
+                       lane.num_norms, lane.num_docs, lane.s, k, cand_v,
+                       cand_i, states + q, out_vals + row, out_idx + row,
+                       blockIdx.x, gridDim.x);
+}
+
+template <typename Kernel>
+cudaError_t query_grid_limit(Kernel kernel, int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(score_topk_kernel<NS>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, score_topk_kernel<NS>, kThreads, kSmemBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, kSmemBytes);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -564,8 +635,9 @@ extern "C" {
 // dynamic shared memory limit on this device, so call it once per device
 // before the first launch there.
 int qw_score_topk_grid_limit(int k, int* out) {
-  return static_cast<int>(k <= 32 ? query_grid_limit<1>(out)
-                                   : query_grid_limit<2>(out));
+  return static_cast<int>(k <= 32 ? query_grid_limit(score_topk_kernel<1>, out)
+                                   : query_grid_limit(score_topk_kernel<2>,
+                                                      out));
 }
 
 // Top-k over postings [0, num_postings). `workspace` holds the 16-byte
@@ -593,6 +665,51 @@ int qw_score_topk(const int* ids, const int* tfs, const int* norms,
     score_topk_kernel<2><<<grid, kThreads, kSmemBytes, st>>>(
         ids, tfs, norms, num_postings, num_norms, num_docs, s, k, cand_v,
         cand_i, state, out_vals, out_idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lane kernel's grid limit, as qw_score_topk_grid_limit's (it raises
+// this kernel's shared memory limit too).
+int qw_score_topk_lanes_grid_limit(int k, int* out) {
+  return static_cast<int>(
+      k <= 32 ? query_grid_limit(score_topk_lanes_kernel<1>, out)
+              : query_grid_limit(score_topk_lanes_kernel<2>, out));
+}
+
+// Top-k over each of `num_lanes` (1..16) posting lists in one launch.
+// `lanes` points at num_lanes host `Lane` records; the kernel gets them by
+// value. Each lane gets grid_limit / num_lanes blocks (at least 1, at most
+// its longest lane's tile count). `workspace` holds 16 GridStates (zeroed
+// once, before the first launch) and then 2 * grid_limit * k candidate
+// words; it belongs to `stream` alone. Row q of out_vals / out_idx
+// ([num_lanes, k]) is lane q's top-k.
+int qw_score_topk_lanes(const void* lanes, int num_lanes, int k,
+                        int grid_limit, void* workspace, float* out_vals,
+                        int64_t* out_idx, void* stream) {
+  if (num_lanes < 1 || num_lanes > kMaxLanes || grid_limit < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LaneTable table;
+  memset(&table, 0, sizeof(table));
+  memcpy(table.lane, lanes, sizeof(Lane) * num_lanes);
+  int64_t tiles = 1;
+  for (int q = 0; q < num_lanes; ++q) {
+    const int64_t lane_tiles =
+        (static_cast<int64_t>(table.lane[q].num_postings) + kTile - 1) / kTile;
+    if (lane_tiles > tiles) tiles = lane_tiles;
+  }
+  int64_t gx = grid_limit / num_lanes;
+  if (gx < 1) gx = 1;
+  if (gx > tiles) gx = tiles;
+  GridState* states = static_cast<GridState*>(workspace);
+  float* cands = reinterpret_cast<float*>(states + kMaxLanes);
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(num_lanes));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 32)
+    score_topk_lanes_kernel<1><<<grid, kThreads, kSmemBytes, st>>>(
+        table, k, cands, states, out_vals, out_idx);
+  else
+    score_topk_lanes_kernel<2><<<grid, kThreads, kSmemBytes, st>>>(
+        table, k, cands, states, out_vals, out_idx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,10 @@ Role of the reference's `quickwit-metrics` macro registry
 and histograms with labels, exposed in Prometheus text format. The port
 registers what its modules read: the leaf and node search service, HBM
 admission and the resident column store, the three cache tiers, the
-chunked scan and query cancellation, tenancy, fault injection and the
-flight recorder (and, in their own modules, the split cache's counters).
-Other subsystems' metrics come with them.
+chunked scan and query cancellation, the query batcher and stacking,
+tenancy, fault injection and the flight recorder (and, in their own
+modules, the split cache's counters). Other subsystems' metrics come with
+them.
 """
 
 from __future__ import annotations
@@ -311,6 +312,53 @@ RESIDENT_EVICTIONS = METRICS.counter(
 RESIDENT_BYTES = METRICS.gauge(
     "qw_resident_bytes",
     "Device bytes currently held by the resident column store")
+RESIDENT_READBACKS_SHED = METRICS.counter(
+    "qw_resident_readbacks_shed_total",
+    "Async readbacks skipped because every rider's deadline had expired")
+
+# --- query batcher (search/batcher.py) ------------------------------------
+# Batching efficiency is queries/dispatches: 1.0 means no coalescing,
+# higher means concurrent queries rode shared dispatches. Exported as two
+# counters (PromQL rate-ratio friendly) plus a convenience gauge of the
+# cumulative ratio.
+SEARCH_BATCHER_QUERIES_TOTAL = METRICS.counter(
+    "qw_search_batcher_queries_total",
+    "Queries entering the cross-query dispatch batcher")
+SEARCH_BATCHER_DISPATCHES_TOTAL = METRICS.counter(
+    "qw_search_batcher_dispatches_total",
+    "Device dispatch rounds issued by the batcher")
+SEARCH_BATCHER_RATIO = METRICS.gauge(
+    "qw_search_batcher_ratio",
+    "Cumulative queries-per-dispatch coalescing ratio of the batcher")
+# Time a rider spends queued between enqueue and its dispatch starting —
+# the convoy window. Followers pay this to ride a shared dispatch.
+SEARCH_BATCHER_QUEUE_WAIT = METRICS.histogram(
+    "qw_search_batcher_queue_wait_seconds",
+    "Wait between a query entering the batcher and its dispatch starting")
+
+# --- query-group stacking (search/batcher.py QueryGroupPlanner) -----------
+# DISTINCT shape-compatible queries stacked into one dispatch along a query
+# axis — as opposed to the convoy counters above, which cover riders of one
+# identical plan. Reject reasons are a bounded enum (plan_shape |
+# group_full), never request-derived.
+QBATCH_GROUPS_TOTAL = METRICS.counter(
+    "qw_qbatch_groups_total",
+    "Query groups (>1 distinct queries) executed as one stacked dispatch")
+QBATCH_QUERIES_PER_DISPATCH = METRICS.histogram(
+    "qw_qbatch_queries_per_dispatch",
+    "Live query lanes per stacked group dispatch",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0))
+QBATCH_INCOMPATIBLE_TOTAL = METRICS.counter(
+    "qw_qbatch_incompatible_total",
+    "Queries that could not join an open group, by bounded reject reason")
+QBATCH_MASKED_RIDERS_TOTAL = METRICS.counter(
+    "qw_qbatch_masked_riders_total",
+    "Riders masked out of an already-formed group (validity lane zeroed) "
+    "instead of forcing a group rebuild")
+QBATCH_SHARED_BYTES_AVOIDED_TOTAL = METRICS.counter(
+    "qw_qbatch_shared_bytes_avoided_total",
+    "Operand bytes served once as broadcast slots instead of per-lane "
+    "copies in stacked group dispatches")
 
 # --- chaos / fault injection (common/faults.py) -----------------------------
 FAULTS_INJECTED_TOTAL = METRICS.counter(

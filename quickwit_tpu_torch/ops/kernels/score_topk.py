@@ -13,11 +13,21 @@ the blocks' winners, all by "higher value first, then lower posting index".
 `score_topk_reference` for CPU tensors; for a CUDA tensor there is no
 fallback. `score_topk.launches` counts kernel launches (one per call).
 
-The kernel's workspace (its arrival ticket, candidate count and shared
-threshold, then the candidates) is made once per (device, stream) and
-reused: the kernel leaves its state at 0, so calls and CUDA-graph replays
-need no reset, and two streams never share one. A stream must have made
-one call before a CUDA graph captures on it.
+`score_topk_lanes` is the lane axis: Q posting lists (a stacked query
+group's lanes, each with its own ids, tfs, norms and scalars) in ONE launch
+of the lane kernel, returning [Q, k] values and indices; row q equals
+`score_topk` over lane q bit for bit (the two kernels share one block
+body). Its plain version, `score_topk_lanes_reference`, loops
+`score_topk_reference` over the lanes. `score_topk_lanes.launches` counts
+its launches (one per call of at most MAX_LANES lanes).
+
+Each kernel's workspace (per list: its arrival ticket, candidate count and
+shared threshold; then the candidates) is made once per (device, stream)
+and reused: the kernels leave their state at 0, so calls and CUDA-graph
+replays need no reset, and two streams never share one. A stream must have
+made one call of a kernel before a CUDA graph captures that kernel on it.
+The workspace dicts are guarded by a lock: the query batcher launches from
+several threads.
 
 Contract: winners with a finite value and their posting indices are exact.
 Lanes past the number of valid postings hold -inf and an unspecified
@@ -27,6 +37,7 @@ in-range posting index.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,6 +45,7 @@ from ..bm25 import B, K1, score_postings
 from ..topk import exact_topk
 
 MAX_K = 64
+MAX_LANES = 16     # the lane kernel's table: QueryBatcher(max_batch=16)
 _INT32_MAX = 2**31 - 1
 # posting indices (and a tile's end past the last one) stay below INT32_MAX
 _MAX_POSTINGS = _INT32_MAX - 4096
@@ -117,46 +129,64 @@ def _library():
                                       f32, f32, f32, f32, f32, f32,
                                       i32, i32, vp, vp, vp, vp]
         lib.qw_score_topk.restype = i32
+        lib.qw_score_topk_lanes_grid_limit.argtypes = [i32,
+                                                       ctypes.POINTER(i32)]
+        lib.qw_score_topk_lanes_grid_limit.restype = i32
+        lib.qw_score_topk_lanes.argtypes = [vp, i32, i32, i32, vp, vp, vp,
+                                            vp]
+        lib.qw_score_topk_lanes.restype = i32
         lib._qw_typed = True
     return lib
 
 
-# device index -> persistent grid size for (k <= 32, k <= 64)
-_GRID_LIMITS: dict[int, tuple[int, int]] = {}
-# (device index, stream handle) -> the kernel's grid state and candidates
-_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+# (kernel, device index) -> persistent grid size for (k <= 32, k <= 64)
+_GRID_LIMITS: dict[tuple[str, int], tuple[int, int]] = {}
+# (kernel, device index, stream handle) -> the kernel's grid states and
+# candidates
+_WORKSPACES: dict[tuple[str, int, int], torch.Tensor] = {}
+_LOCK = threading.Lock()   # guards the two dicts above
 
 
-def _grid_limits(lib, dev: torch.device) -> tuple[int, int]:
-    limits = _GRID_LIMITS.get(dev.index)
-    if limits is None:
-        out = ctypes.c_int()
-        found = []
-        for k in (1, MAX_K):   # one kernel variant each
-            err = lib.qw_score_topk_grid_limit(k, ctypes.byref(out))
-            if err:
-                raise RuntimeError(f"score_topk: occupancy query failed: "
-                                   f"CUDA error {err}")
-            found.append(out.value)
-        limits = _GRID_LIMITS[dev.index] = (found[0], found[1])
-    return limits
+def _grid_limits(query, kernel: str, dev: torch.device) -> tuple[int, int]:
+    with _LOCK:
+        limits = _GRID_LIMITS.get((kernel, dev.index))
+        if limits is None:
+            out = ctypes.c_int()
+            found = []
+            for k in (1, MAX_K):   # one kernel variant each
+                err = query(k, ctypes.byref(out))
+                if err:
+                    raise RuntimeError(f"{kernel}: occupancy query failed: "
+                                       f"CUDA error {err}")
+                found.append(out.value)
+            limits = _GRID_LIMITS[(kernel, dev.index)] = (found[0], found[1])
+        return limits
+
+
+def _workspace(kernel: str, dev: torch.device, stream: int,
+               words: int) -> torch.Tensor:
+    """The kernel's workspace on (device, stream), zeroed at its creation:
+    the kernel leaves every grid state at 0 after a launch."""
+    with _LOCK:
+        workspace = _WORKSPACES.get((kernel, dev.index, stream))
+        if workspace is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{kernel}: its workspace is made on a stream's first "
+                    "call; call it once on this stream before capturing a "
+                    "CUDA graph")
+            workspace = torch.zeros(words, dtype=torch.int32, device=dev)
+            _WORKSPACES[(kernel, dev.index, stream)] = workspace
+        return workspace
 
 
 def _launch(ids, tfs, fieldnorms, idf, avg_len, num_docs: int, k: int):
     lib = _library()
     dev = ids.device
-    limits = _grid_limits(lib, dev)
+    limits = _grid_limits(lib.qw_score_topk_grid_limit, "score_topk", dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    workspace = _WORKSPACES.get((dev.index, stream))
-    if workspace is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "score_topk: its workspace is made on a stream's first call; "
-                "call it once on this stream before capturing a CUDA graph")
-        # zeroed once: the kernel leaves its grid state at 0 after a launch
-        workspace = torch.zeros(_STATE_WORDS + 2 * max(limits) * MAX_K,
-                                dtype=torch.int32, device=dev)
-        _WORKSPACES[(dev.index, stream)] = workspace
+    workspace = _workspace("score_topk", dev, stream,
+                           _STATE_WORDS + 2 * max(limits) * MAX_K)
     out_vals = torch.empty(k, dtype=torch.float32, device=dev)
     out_idx = torch.empty(k, dtype=torch.int64, device=dev)
     err = lib.qw_score_topk(
@@ -190,3 +220,85 @@ def score_topk(ids: torch.Tensor, tfs: torch.Tensor, fieldnorms: torch.Tensor,
 
 
 score_topk.launches = 0
+
+
+# --- the lane axis ------------------------------------------------------------
+
+class _Lane(ctypes.Structure):
+    """One lane of the lane kernel's table (`Lane` in csrc/score_topk.cu,
+    64 bytes)."""
+    _fields_ = [("ids", ctypes.c_void_p), ("tfs", ctypes.c_void_p),
+                ("norms", ctypes.c_void_p), ("num_norms", ctypes.c_int64),
+                ("num_postings", ctypes.c_int), ("num_docs", ctypes.c_int),
+                ("weight", ctypes.c_float), ("avg_clamped", ctypes.c_float),
+                ("k1", ctypes.c_float), ("b", ctypes.c_float),
+                ("one_minus_b", ctypes.c_float), ("eps", ctypes.c_float)]
+
+
+assert ctypes.sizeof(_Lane) == 64
+
+
+def score_topk_lanes_reference(lanes, k: int):
+    """Plain torch version of `score_topk_lanes`: `score_topk_reference`
+    over each lane, stacked. Returns (f32 values [Q, k], int64 posting
+    indices [Q, k])."""
+    outs = [score_topk_reference(ids, tfs, norms, idf, avg_len, int(nd), k)
+            for ids, tfs, norms, idf, avg_len, nd in lanes]
+    return (torch.stack([v for v, _ in outs]),
+            torch.stack([i for _, i in outs]))
+
+
+def _launch_lanes(lanes, k: int):
+    lib = _library()
+    dev = lanes[0][0].device
+    limits = _grid_limits(lib.qw_score_topk_lanes_grid_limit,
+                          "score_topk_lanes", dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    workspace = _workspace("score_topk_lanes", dev, stream,
+                           _STATE_WORDS * MAX_LANES + 2 * max(limits) * MAX_K)
+    table = (_Lane * len(lanes))()
+    for entry, (ids, tfs, norms, idf, avg_len, num_docs) in zip(table, lanes):
+        entry.ids, entry.tfs, entry.norms = (ids.data_ptr(), tfs.data_ptr(),
+                                             norms.data_ptr())
+        entry.num_norms = norms.shape[0]
+        entry.num_postings = ids.shape[0]
+        entry.num_docs = min(int(num_docs), _INT32_MAX)
+        (entry.weight, entry.avg_clamped, entry.k1, entry.b,
+         entry.one_minus_b, entry.eps) = _host_scalars(idf, avg_len)
+    out_vals = torch.empty((len(lanes), k), dtype=torch.float32, device=dev)
+    out_idx = torch.empty((len(lanes), k), dtype=torch.int64, device=dev)
+    err = lib.qw_score_topk_lanes(
+        ctypes.addressof(table), len(lanes), k, limits[k > 32],
+        workspace.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"score_topk_lanes launch failed: CUDA error {err}")
+    score_topk_lanes.launches += 1
+    return out_vals, out_idx
+
+
+def score_topk_lanes(lanes, k: int):
+    """Top-k BM25 of each lane in ONE launch: (f32 values [Q, k], int64
+    posting indices [Q, k]), row q equal to `score_topk(*lanes[q], k)`.
+    `lanes` is a sequence of 1..MAX_LANES tuples (ids, tfs, fieldnorms,
+    idf, avg_len, num_docs) as `score_topk` takes them; lanes may differ in
+    length and lie on one device. CUDA tensors launch the lane kernel; CPU
+    tensors run the plain version."""
+    if not 1 <= len(lanes) <= MAX_LANES:
+        raise ValueError(f"score_topk_lanes: needs 1..{MAX_LANES} lanes, "
+                         f"got {len(lanes)}")
+    dev = lanes[0][0].device
+    for ids, tfs, norms, *_ in lanes:
+        _check(ids, tfs, norms, k)
+        if ids.device != dev:
+            raise ValueError("score_topk_lanes: lanes on different devices")
+    if dev.type == "cpu":
+        return score_topk_lanes_reference(lanes, k)
+    if dev.type != "cuda":
+        raise ValueError(f"score_topk_lanes: no kernel for device {dev}")
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return _launch_lanes(lanes, k)
+    return _launch_lanes(lanes, k)
+
+
+score_topk_lanes.launches = 0

@@ -1,7 +1,8 @@
 """Resumable chunked leaf scans: the host loop between chunk programs.
 
-Counterpart of the JAX package's `search/chunkexec.py` (the solo scan; the
-query-group scan comes with the query batcher). A fused leaf program is
+Counterpart of the JAX package's `search/chunkexec.py`: the solo scan and
+the query-group scan of the query batcher (`execute_group_chunked`, one
+stacked dispatch per chunk over every live lane). A fused leaf program is
 uninterruptible once launched, so a cancelled or expired query, or a
 background tenant under overload, could only be stopped between splits.
 The chunked scan runs one split as a sequence of chunk programs, each
@@ -62,7 +63,7 @@ import torch
 from ..common import sync
 from ..common.clock import get_clock
 from ..common.deadline import (
-    CancelledQuery, current_cancel_token, current_deadline,
+    CancelledQuery, DeadlineExceeded, current_cancel_token, current_deadline,
 )
 from ..common.faults import InjectedFault
 from ..index.format import DOC_PAD, POSTING_PAD, ZONEMAP_BLOCK
@@ -519,15 +520,20 @@ def _slice_window(orig: np.ndarray, view: np.ndarray) -> tuple[int, int]:
 
 
 def _chunk_device_arrays(plan: LoweredPlan, chunk: LoweredPlan,
-                         device_arrays: list, rebase=None) -> list:
+                         device_arrays: list, rebase=None,
+                         slots=None) -> list:
     """Device inputs for a chunk, none of them staged from the host: slots
     the chunk plan passes through stay as they are, slots it sliced become
     device views of the same window, and (dense mode, `rebase` =
     (base, span, ids slots)) posting ids are rebased into the window on
-    the device, as `dense_chunk_plan` rebases them on the host."""
+    the device, as `dense_chunk_plan` rebases them on the host. With
+    `slots`, only those slots are made (the others are None): a stacked
+    group's lanes other than lane 0 need only their stacked slots."""
     out = []
     for slot, (orig, new) in enumerate(zip(plan.arrays, chunk.arrays)):
-        if new is orig:
+        if slots is not None and slot not in slots:
+            out.append(None)
+        elif new is orig:
             out.append(device_arrays[slot])
         elif rebase is not None and slot in rebase[2]:
             base, span, _ = rebase
@@ -705,3 +711,250 @@ def maybe_execute_chunked(plan: LoweredPlan, k: int, device_arrays: list,
     return execute_plan_chunked(plan, k, device_arrays, device,
                                 threshold_box=threshold_box,
                                 fault_injector=fault_injector)
+
+
+# --- query-group chunked scan ------------------------------------------------
+#
+# A stacked query group (search/batcher.py QueryGroupPlanner) composed with
+# chunked execution: the carried state grows a query dim (one _CarriedState
+# per lane), each chunk runs as ONE stacked dispatch over the live lanes
+# (one `score_topk_lanes` launch per chunk where the lanes take the fused
+# kernel), and every chunk boundary applies PER-QUERY masks: a lane
+# cancelled or expired mid-scan leaves the later dispatches (valid=False)
+# while the surviving lanes keep scanning. Early termination and threshold
+# tightening are per lane: each query's own ThresholdBox and carried Kth
+# value drive it. Preemption is a GROUP decision at the highest priority
+# among live lanes: a group carrying an interactive rider never parks for
+# interactive work elsewhere, and the park is byte-accounted once for the
+# summed carried state.
+#
+# Two departures from the JAX group scan, as in the port's solo scan: the
+# carried state merges through `merge_topk_chunks`, which ranks floats as
+# the fused selections do (the JAX lexsort ranks the two zeros equal and
+# NaN last), and a dense chunk rebases EVERY lane's doc ids to global doc
+# space (the JAX scan rebases only sort values > -inf, so a NaN hit would
+# keep its window-local id). A lane cancelled mid-scan answers with a
+# result marked "partial", which the leaf reports as a failed split and no
+# cache tier keeps.
+
+def execute_group_chunked(plans: list, k: int, arrays_list: list, *,
+                          valid=None, tboxes=None, deadlines=None,
+                          cancels=None, tenants=None,
+                          fault_injector=None,
+                          span: Optional[int] = None,
+                          device=None) -> Optional[list]:
+    """Run a shape-compatible query group as one chunked stacked scan on
+    `device` (default `cuda`; where the arrays lie).
+
+    Returns a list aligned with `plans`: per lane a result dict, an
+    exception instance (CancelledQuery / DeadlineExceeded — the batcher
+    fans it to that rider), or None for a lane masked on entry. Returns
+    None (the group does not chunk) when the shared structure is
+    ineligible or too small to span two chunks — the caller then runs one
+    fused stacked dispatch."""
+    if not CHUNKING.enabled:
+        return None
+    base = plans[0]
+    mode_info = chunk_mode(base)
+    if mode_info is None:
+        return None
+    mode, total, align = mode_info
+    if total <= 0:
+        return None
+    if span is None:
+        span = (CHUNKING.posting_span if mode == "posting"
+                else CHUNKING.doc_span)
+    if span is None:
+        span = CHUNK_SIZER.span_for(mode, align)
+    if span is None or span <= 0:
+        return None
+    spans = chunk_spans(total, span, align)
+    if len(spans) < 2:
+        return None
+
+    q = len(plans)
+    valid = list(valid) if valid is not None else [True] * q
+    tboxes = list(tboxes) if tboxes is not None else [None] * q
+    deadlines = list(deadlines) if deadlines is not None else [None] * q
+    cancels = list(cancels) if cancels is not None else [None] * q
+    if tenants is None:
+        tenants = [effective_tenant()] * q
+    bounds = [(_host_chunk_bounds(p, spans) if mode == "posting" else None)
+              for p in plans]
+    early_ok = [_early_term_eligible(p, k, mode) for p in plans]
+    ids_slots = (frozenset(ids for ids, _ in
+                           chunk_slot_plan(base).posting_pairs)
+                 if mode == "dense" else frozenset())
+
+    for _attempt in range(2):
+        try:
+            return _run_group_scan(plans, k, arrays_list, device, mode, spans,
+                                   bounds, early_ok, ids_slots, list(valid),
+                                   tboxes, deadlines, cancels, tenants,
+                                   fault_injector)
+        except _RestartScan:
+            CHUNK_RESTARTS_TOTAL.inc()
+            continue
+    # two carried-state losses in a row: finish as one fused stacked
+    # dispatch — the group degrades to the unchunked stacked path instead
+    # of livelocking the scan
+    return executor.readback_plan_stacked(executor.dispatch_plan_stacked(
+        plans, k, arrays_list, valid=valid, device=device))
+
+
+def _group_park_lane(live, tenants):
+    """The lane whose tenant charges (and whose priority gates) a group
+    park: the highest-priority live lane."""
+    lanes = [i for i, alive in enumerate(live) if alive]
+    return max(lanes, key=lambda i: tenants[i].priority)
+
+
+def _run_group_scan(plans, k, arrays_list, device, mode, spans, bounds,
+                    early_ok, ids_slots, live, tboxes, deadlines, cancels,
+                    tenants, fault_injector):
+    clock = get_clock()
+    q = len(plans)
+    states = [_CarriedState() for _ in range(q)]
+    outcome: dict[int, Any] = {}
+    thresholds = [
+        (float(np.asarray(p.scalars[p.threshold_slot]))
+         if p.threshold_slot >= 0 else None)
+        for p in plans]
+    _, stacked_slots = executor.stacked_slot_split(plans)
+    last_boundary = clock.monotonic()
+    for index, (lo, hi) in enumerate(spans):
+        if index > 0:
+            now = clock.monotonic()
+            CHUNK_BOUNDARY_SECONDS.observe(now - last_boundary)
+            last_boundary = now
+            if flight.recording():
+                flight.emit("chunk.boundary",
+                            attrs={"index": index, "of": len(spans),
+                                   "lanes": int(sum(live))})
+            # (a) per-query kill masks: a cancelled/expired lane leaves
+            # the dispatch via its validity flag — the group's structure
+            # never changes mid-scan
+            for i in range(q):
+                if not live[i]:
+                    continue
+                token = cancels[i]
+                if token is not None and token.cancelled:
+                    if CHUNKING.partial_on_cancel \
+                            and states[i].chunks_done > 0:
+                        outcome[i] = states[i].to_result(k, partial=True)
+                    else:
+                        outcome[i] = CancelledQuery(
+                            "chunked group boundary", token.reason)
+                    live[i] = False
+                    continue
+                if deadlines[i] is not None and deadlines[i].expired:
+                    outcome[i] = DeadlineExceeded("chunked group boundary")
+                    live[i] = False
+            if not any(live):
+                break
+            # chaos: a yield fault discards the whole group's carried
+            # state — all lanes restart together (same contract as solo)
+            if fault_injector is not None:
+                try:
+                    fault_injector.perturb("kernel.chunk_yield")
+                except InjectedFault as exc:
+                    raise _RestartScan() from exc
+            # (b) group preempt at the max live priority: parks only when
+            # EVERY live lane is outranked by the active higher class
+            park_lane = _group_park_lane(live, tenants)
+            park_tenant = tenants[park_lane]
+            if PREEMPT_GATE.should_yield(park_tenant.priority):
+                PREEMPT_TOTAL.inc()
+                ticket = PARKED_STATES.park(
+                    park_tenant.tenant_id,
+                    sum(states[i].nbytes() for i in range(q) if live[i]))
+                if flight.recording():
+                    flight.emit("chunk.preempt_park",
+                                attrs={"bytes": ticket.nbytes,
+                                       "priority": park_tenant.priority,
+                                       "lanes": int(sum(live))})
+                try:
+                    if fault_injector is not None:
+                        fault_injector.perturb("kernel.preempt_park")
+                    PREEMPT_GATE.wait_until_clear(
+                        park_tenant.priority, CHUNKING.max_park_secs,
+                        deadline=deadlines[park_lane],
+                        token=cancels[park_lane])
+                except InjectedFault as exc:
+                    ticket.evicted = True
+                    raise _RestartScan() from exc
+                finally:
+                    PARKED_STATES.release(ticket)
+                if ticket.evicted:
+                    flight.emit("chunk.preempt_evict")
+                    raise _RestartScan()
+                flight.emit("chunk.preempt_resume")
+            # (c) per-lane early termination + threshold tightening
+            for i in range(q):
+                if not live[i]:
+                    continue
+                kth = states[i].kth_value(k)
+                if (early_ok[i] and kth is not None and bounds[i] is not None
+                        and index < len(bounds[i])
+                        and float(bounds[i][index:].max()) <= kth):
+                    CHUNK_EARLY_TERMINATIONS_TOTAL.inc()
+                    if flight.recording():
+                        flight.emit("chunk.early_term",
+                                    attrs={"after": index, "lane": i})
+                    result = states[i].to_result(k)
+                    result["count"] = plans[i].count_override
+                    outcome[i] = result
+                    live[i] = False
+                    continue
+                if thresholds[i] is not None:
+                    box_value = (tboxes[i].get()
+                                 if tboxes[i] is not None else None)
+                    for candidate in (box_value, kth):
+                        if candidate is not None \
+                                and candidate > thresholds[i]:
+                            thresholds[i] = candidate
+        if not any(live):
+            break
+        chunks = []
+        for i in range(q):
+            chunk = (posting_chunk_plan(plans[i], lo, hi)
+                     if mode == "posting"
+                     else dense_chunk_plan(plans[i], lo, hi - lo))
+            if thresholds[i] is not None:
+                chunk.scalars[plans[i].threshold_slot] = \
+                    np.float64(thresholds[i])
+            chunks.append(chunk)
+        if (mode == "dense" and chunks[0].num_docs <= 0
+                and all(states[i].chunks_done > 0
+                        for i in range(q) if live[i])):
+            continue  # fully past num_docs for every lane: nothing to add
+        rebase = (lo, hi - lo, ids_slots) if mode == "dense" else None
+        # the first live lane makes every slot (the shared ones are read
+        # from it), the other live lanes only their stacked slots, and a
+        # masked lane nothing: no device work for what the dispatch skips
+        first = live.index(True)
+        chunk_devs = [
+            (_chunk_device_arrays(plans[i], chunks[i], arrays_list[i],
+                                  rebase,
+                                  None if i == first else stacked_slots)
+             if live[i] else None)
+            for i in range(q)]
+        t0 = clock.monotonic()
+        results = executor.readback_plan_stacked(
+            executor.dispatch_plan_stacked(chunks, k, chunk_devs,
+                                           valid=list(live), device=device))
+        CHUNK_DISPATCHES_TOTAL.inc()
+        CHUNK_SIZER.observe(mode, hi - lo, clock.monotonic() - t0)
+        for i in range(q):
+            if not live[i] or results[i] is None:
+                continue
+            result = results[i]
+            if mode == "dense" and k > 0:
+                # window-local ids of every lane rebase to global doc space
+                # (a NaN sort value is a live hit too)
+                result["doc_ids"] = (result["doc_ids"] + lo).astype(np.int32)
+            states[i].absorb(result, k)
+    for i in range(q):
+        if live[i]:
+            outcome[i] = states[i].to_result(k)
+    return [outcome.get(i) for i in range(q)]

@@ -21,7 +21,11 @@ LoweredPlan into one function over the staged arrays, in one of two forms:
   the exact top-k, and the bucket counts over the dense mask.
 
 The whole result tree is concatenated as f64 on the device and read back
-with ONE `.cpu()` per query. `compute_packed_mask` runs the predicate tree
+with ONE `.cpu()` per query. A stacked query group or a convoy
+(`dispatch_plan_stacked` / `dispatch_plan_multi`, the query batcher's
+paths) runs its lanes' programs in one dispatch, with one `score_topk_lanes`
+launch for the fused step of all its lanes, and reads every lane back in
+ONE asynchronous copy. `compute_packed_mask` runs the predicate tree
 alone and returns its np.packbits-ordered bitmask (the mask-fill program).
 
 The JAX package's `guided_topk` (an f32 screen that re-dispatches through
@@ -44,6 +48,7 @@ correctly rounded quotient.
 
 from __future__ import annotations
 
+from dataclasses import replace as dc_replace
 from typing import Any
 
 import numpy as np
@@ -55,7 +60,9 @@ from ..ops import aggs as agg_ops
 from ..ops import masks as mask_ops
 from ..ops import topk as topk_ops
 from ..ops.bm25 import dequantize_block_bounds, score_postings
-from ..ops.kernels.score_topk import MAX_K as FUSED_MAX_K, score_topk
+from ..ops.kernels.score_topk import (
+    MAX_K as FUSED_MAX_K, MAX_LANES, score_topk, score_topk_lanes,
+)
 from ..ops.masks import widened as _widened
 from .plan import (
     PRESENT_FROM_VALUES, BucketAggExec, CompositeAggExec, LoweredPlan,
@@ -526,15 +533,40 @@ def _keyed_for(by, descending, values_slot, present_slot, view, mask,
     return torch.where(mask, key if descending else -key, neg_inf)
 
 
+def _takes_fused_kernel(plan: LoweredPlan, k: int) -> bool:
+    """True when the program's top-k is the fused `score_topk` step: a
+    posting-space plan sorted by score alone, with a scoring root, 0 < k <=
+    64 and no threshold slot. Every part is in the plan's signature, so the
+    lanes of a stacked group all agree."""
+    return (_posting_space_eligible(plan) and 0 < k <= FUSED_MAX_K
+            and plan.sort.by == "score" and plan.sort.by2 == "none"
+            and plan.root.scoring and plan.threshold_slot < 0)
+
+
+def _fused_lane(plan: LoweredPlan, arrays, scalars, num_docs) -> tuple:
+    """The fused step's inputs for one query: (ids, tfs, fieldnorms, idf,
+    avg_len, num_docs), as `score_topk` and each lane of
+    `score_topk_lanes` take them."""
+    root = plan.root
+    return (arrays[root.ids_slot], arrays[root.tfs_slot],
+            arrays[root.norm_slot], scalars[root.idf_slot],
+            scalars[root.avg_len_slot], num_docs)
+
+
 def _build_posting_space(plan: LoweredPlan, k: int):
-    """The posting-space program: fn(arrays, scalars, num_docs) → (sort
-    values f64[k], second sort values f64[k] | None, doc ids i32[k], hit
-    scores f32[k], count i32, topk_safe f64, agg states), the JAX
-    program's result tree."""
+    """The posting-space program: fn(arrays, scalars, num_docs, fused=None)
+    → (sort values f64[k], second sort values f64[k] | None, doc ids
+    i32[k], hit scores f32[k], count i32, topk_safe f64, agg states), the
+    JAX program's result tree. When the plan takes the fused kernel
+    (`_takes_fused_kernel`), `fused` may hand in its (values, posting
+    indices), computed apart (a stacked group runs the step for all its
+    lanes in one `score_topk_lanes` launch); with None the program runs
+    `score_topk` itself, first."""
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     padded = plan.num_docs_padded
+    fused_step = _takes_fused_kernel(plan, k)
 
-    def fn(arrays, scalars, num_docs):
+    def fn(arrays, scalars, num_docs, fused=None):
         ids = arrays[root.ids_slot]
         tfs = arrays[root.tfs_slot]
         dev = ids.device
@@ -551,13 +583,13 @@ def _build_posting_space(plan: LoweredPlan, k: int):
                     torch.zeros(0, dtype=torch.float32, device=dev),
                     count, one, tuple(agg_out))
         kk = min(k, num_postings)
-        if (sort.by == "score" and sort.by2 == "none" and root.scoring
-                and k <= FUSED_MAX_K and plan.threshold_slot < 0):
+        if fused_step:
             # fused scoring + top-k: the [P] scores never materialize; hit
             # scores come straight from the kernel's winners
-            vals_f32, pos = score_topk(
-                ids, tfs, arrays[root.norm_slot], scalars[root.idf_slot],
-                scalars[root.avg_len_slot], num_docs, kk)
+            if fused is None:
+                fused = score_topk(*_fused_lane(plan, arrays, scalars,
+                                                num_docs), kk)
+            vals_f32, pos = fused
             sort_vals = vals_f32.to(torch.float64)
             doc_ids = ids[pos]
             hit_scores = torch.where(mask_ops.dead_lane_mask(vals_f32),
@@ -764,17 +796,20 @@ def _node_evaluator(padded: int, device):
 
 
 def _build(plan: LoweredPlan, k: int, device):
-    """The leaf program for `plan`: fn(arrays, scalars, num_docs) → (sort
-    values f64[k], sort values 2 f64[k] | None, doc ids i32[k], hit scores
-    f32[k], count i32, topk_safe f64, agg states), the JAX program's result
-    tree. Posting-space eligible plans take `_build_posting_space`."""
+    """The leaf program for `plan`: fn(arrays, scalars, num_docs,
+    fused=None) → (sort values f64[k], sort values 2 f64[k] | None, doc ids
+    i32[k], hit scores f32[k], count i32, topk_safe f64, agg states), the
+    JAX program's result tree. Posting-space eligible plans take
+    `_build_posting_space` (the only form that reads `fused`). The function
+    reads only what `plan.signature(k)` covers from `plan`, so plans of one
+    signature share it."""
     if _posting_space_eligible(plan):
         return _build_posting_space(plan, k)
     padded = plan.num_docs_padded
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     eval_node = _node_evaluator(padded, device)
 
-    def fn(arrays, scalars, num_docs):
+    def fn(arrays, scalars, num_docs, fused=None):
         # predicates read the raw (possibly packed-delta) arrays; value
         # consumers go through the rebasing view
         view = _RebaseView(arrays, scalars, plan.rebase)
@@ -873,14 +908,19 @@ def _unflatten(spec, host: np.ndarray, offset: int):
     return (tuple(items) if kind == "tuple" else items), offset
 
 
+def _packed_leaves(fn, arrays, scalars, num_docs, fused=None):
+    """(the result tree's leaves as flat f64 tensors, the tree's spec)."""
+    leaves: list[torch.Tensor] = []
+    spec = _flatten(fn(arrays, scalars, num_docs, fused), leaves)
+    return [leaf.reshape(-1).to(torch.float64) for leaf in leaves], spec
+
+
 def _get_packed_executor(plan: LoweredPlan, k: int, device):
     """packed(arrays, scalars, num_docs) → (one f64 device tensor, spec)."""
     fn = _build(plan, k, device)
 
     def packed(arrays, scalars, num_docs):
-        leaves: list[torch.Tensor] = []
-        spec = _flatten(fn(arrays, scalars, num_docs), leaves)
-        flat = [leaf.reshape(-1).to(torch.float64) for leaf in leaves]
+        flat, spec = _packed_leaves(fn, arrays, scalars, num_docs)
         return torch.cat(flat), spec
 
     return packed
@@ -891,9 +931,8 @@ def _unpack_result(packed: np.ndarray, spec):
     return tree
 
 
-def readback_plan_result(packed: torch.Tensor, spec) -> dict[str, Any]:
-    """ONE device→host copy for the entire result tree, unpacked by spec."""
-    host = packed.cpu().numpy()
+def _result_dict(host: np.ndarray, spec) -> dict[str, Any]:
+    """One query's result dict from its packed host row."""
     sort_vals, sort_vals2, doc_ids, hit_scores, count, _safe, agg_out = \
         _unpack_result(host, spec)
     return {
@@ -904,6 +943,11 @@ def readback_plan_result(packed: torch.Tensor, spec) -> dict[str, Any]:
         "count": int(count),
         "aggs": list(agg_out),
     }
+
+
+def readback_plan_result(packed: torch.Tensor, spec) -> dict[str, Any]:
+    """ONE device→host copy for the entire result tree, unpacked by spec."""
+    return _result_dict(packed.cpu().numpy(), spec)
 
 
 def _on_device(device, device_arrays: list, caller: str) -> torch.device:
@@ -926,6 +970,237 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
     packed, spec = _get_packed_executor(plan, k, dev)(
         list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
     return readback_plan_result(packed, spec)
+
+
+# --- stacked query groups and convoys -----------------------------------------
+#
+# A group of Q queries over one split that share a plan STRUCTURE (one
+# signature: node kinds, sort spec, agg shape, array shapes and dtypes,
+# scalar dtypes, threshold/search_after/rebase presence) runs as ONE
+# dispatch: the lanes' programs are enqueued back to back by one host call,
+# their packed f64 rows land in one [bucket, W] device tensor, and that
+# tensor crosses to the host in ONE asynchronous copy. Where the plans take
+# the fused kernel, all the group's lanes share ONE `score_topk_lanes`
+# launch, the counterpart of the JAX program's `vmap` over the Pallas call.
+#
+# The JAX package traces the group into one vmapped XLA program. The port
+# has no vmap over its programs: they read host scalars (`_rebased`,
+# `ops/masks.py`) and launch the kernel through ctypes. So the group is a
+# loop over its live lanes, each lane's operands assembled from its own
+# tensors (stacked slots) or lane 0's (shared slots, whose array keys agree
+# across the group): no operand is stacked into a [Q, ...] copy, and a warm
+# stacked call stages 0 bytes. A lane masked after the group formed
+# (`valid[q] = False`) and the surplus lanes of the power-of-two bucket run
+# nothing and leave their row 0.
+#
+# `dispatch_*` does not synchronize: it enqueues the programs and the copy
+# into pinned host memory and records a CUDA event; `readback_*` waits on
+# that event and unpacks the rows. So the batcher releases its dispatch
+# lock before the readback, and the next convoy enqueues while this one's
+# copy is in flight (the JAX package's `copy_to_host_async`).
+#
+# The JAX readback re-dispatches the lanes whose guided top-k could not
+# certify its answer (`topk_safe == 0`). The port runs `exact_topk`, whose
+# `topk_safe` is always 1, so that branch has no counterpart here.
+
+# program key -> {device: leaf program}; the programs are plain closures,
+# kept per key so that a second group of one structure reuses its program
+_MULTI_CACHE: dict[tuple, dict[str, Any]] = {}
+_STACKED_CACHE: dict[tuple, dict[str, Any]] = {}
+
+
+def _batch_bucket(n: int) -> int:
+    """Round a group size up to the next power of two (the JAX package's
+    bucket: one compiled program per bucket there, one program key here);
+    surplus lanes run nothing and are dropped at readback."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def stacked_slot_split(plans) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Partition array slots into (shared, stacked) by per-slot cache-key
+    agreement across the group. The port's array keys carry their content
+    (a range agg's bounds by their bytes, a phrase's postings with its
+    slop), and a group forms over one split only, so key equality at a
+    slot means the lanes read the same staged tensor: the slot is served
+    from lane 0. A slot whose key differs reads each lane's own tensor."""
+    keys0 = plans[0].array_keys
+    shared, stacked = [], []
+    for slot, key in enumerate(keys0):
+        if all(p.array_keys[slot] == key for p in plans[1:]):
+            shared.append(slot)
+        else:
+            stacked.append(slot)
+    return tuple(shared), tuple(stacked)
+
+
+def multi_program_cache_key(plan: LoweredPlan, k: int, batch: int,
+                            exact: bool = False) -> tuple:
+    """The `_MULTI_CACHE` key (batch already bucketed by the caller), the
+    JAX package's key for the same convoy."""
+    k = max(0, min(k, plan.num_docs_padded))
+    return (plan.signature(k), batch, exact)
+
+
+def stacked_program_cache_key(plans, k: int, bucket=None,
+                              exact: bool = False) -> tuple:
+    """The `_STACKED_CACHE` key for a query group, the JAX package's key
+    for the same group: (signature, bucket, stacked slots, exact)."""
+    base = plans[0]
+    k = max(0, min(k, base.num_docs_padded))
+    if bucket is None:
+        bucket = _batch_bucket(len(plans))
+    _, stacked_slots = stacked_slot_split(plans)
+    return (base.signature(k), bucket, stacked_slots, exact)
+
+
+def _program(cache: dict, key: tuple, plan: LoweredPlan, k: int, dev):
+    """The group's leaf program, built once per (key, device) from the
+    plan's structure alone, so a cached program keeps none of the plan's
+    host arrays alive."""
+    by_device = cache.setdefault(key, {})
+    fn = by_device.get(str(dev))
+    if fn is None:
+        structure = dc_replace(plan, arrays=[], array_keys=[], scalars=[])
+        fn = by_device[str(dev)] = _build(structure, k, dev)
+    return fn
+
+
+class LaneDispatch:
+    """A dispatched lane group: the host copy of its packed [bucket, W]
+    rows (pinned, filled asynchronously on a card), the event that marks
+    the copy done, the rows' unpack spec, and which of the `batch` lanes
+    ran."""
+
+    __slots__ = ("host", "event", "spec", "batch", "valid")
+
+    def __init__(self, host, event, spec, batch: int, valid: list):
+        self.host = host
+        self.event = event
+        self.spec = spec
+        self.batch = batch
+        self.valid = valid
+
+
+def _dispatch_lanes(base: LoweredPlan, k: int, fn, lanes: list, batch: int,
+                    dev) -> LaneDispatch:
+    """Enqueue the live lanes' programs (`lanes[q]` = (arrays, scalars,
+    num_docs), None for a masked or surplus lane) and the copy of their
+    packed rows; no synchronization."""
+    live = [q for q, lane in enumerate(lanes) if lane is not None]
+    fused: dict[int, tuple] = {}
+    if live and _takes_fused_kernel(base, k):
+        # the group's fused step: one lane-kernel launch per MAX_LANES lanes
+        kk = min(k, int(lanes[live[0]][0][base.root.ids_slot].shape[0]))
+        for lo in range(0, len(live), MAX_LANES):
+            rows = live[lo:lo + MAX_LANES]
+            vals, idx = score_topk_lanes(
+                [_fused_lane(base, *lanes[q]) for q in rows], kk)
+            for row, q in enumerate(rows):
+                fused[q] = (vals[row], idx[row])
+    out = spec = None
+    for q in live:
+        flat, lane_spec = _packed_leaves(fn, *lanes[q], fused.get(q))
+        if out is None:
+            spec = lane_spec
+            # rows of masked and surplus lanes stay 0 (never written: their
+            # sort lanes would hold -inf, and -inf * 0 is NaN)
+            out = torch.zeros((len(lanes), sum(t.numel() for t in flat)),
+                              dtype=torch.float64, device=dev)
+        elif lane_spec != spec:
+            raise ValueError("stacked lanes differ in result structure")
+        torch.cat(flat, out=out[q])
+    event = None
+    if out is None:
+        host = None
+    elif dev.type == "cuda":
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    else:
+        host = out
+    return LaneDispatch(host, event, spec, batch,
+                        [lanes[q] is not None for q in range(batch)])
+
+
+def _readback_lanes(dispatched: LaneDispatch) -> list:
+    if dispatched.event is not None:
+        dispatched.event.synchronize()
+    host = dispatched.host.numpy() if dispatched.host is not None else None
+    return [_result_dict(host[q], dispatched.spec) if ok else None
+            for q, ok in enumerate(dispatched.valid)]
+
+
+def dispatch_plan_multi(plan: LoweredPlan, k: int, device_arrays: list,
+                        scalar_sets: list, device=None) -> LaneDispatch:
+    """Dispatch len(scalar_sets) queries of ONE plan structure over the
+    SAME arrays (the convoy: riders that differ only in their scalars) as
+    one lane group on `device` (default `cuda`). Each element of
+    `scalar_sets` is a full per-query scalar tuple (plan.scalars layout)."""
+    dev = _on_device(device, device_arrays, "dispatch_plan_multi")
+    k = max(0, min(k, plan.num_docs_padded))
+    SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    batch = len(scalar_sets)
+    bucket = _batch_bucket(batch)
+    fn = _program(_MULTI_CACHE, multi_program_cache_key(plan, k, bucket),
+                  plan, k, dev)
+    arrays = list(device_arrays)
+    lanes = [(arrays, tuple(s), int(plan.num_docs)) for s in scalar_sets]
+    return _dispatch_lanes(plan, k, fn, lanes + [None] * (bucket - batch),
+                           batch, dev)
+
+
+def readback_plan_multi(dispatched: LaneDispatch) -> list[dict[str, Any]]:
+    """The convoy's one device→host copy, unpacked per lane."""
+    return _readback_lanes(dispatched)
+
+
+def dispatch_plan_stacked(plans, k: int, arrays_list, valid=None,
+                          device=None) -> LaneDispatch:
+    """Dispatch len(plans) DISTINCT queries of one structure as one lane
+    group on `device` (default `cuda`). `plans[q]` and `arrays_list[q]` are
+    query q's lowered plan and staged arrays; all plans share
+    `signature(k)` (the QueryGroupPlanner guarantees it). `valid[q] =
+    False` masks lane q: it runs nothing and reads back as None, and the
+    program key does not change. A masked lane's arrays may be None, and
+    so may a lane's shared slots: they are served from the first lane that
+    has arrays (lane 0 whenever it has them)."""
+    base = plans[0]
+    k = max(0, min(k, base.num_docs_padded))
+    batch = len(plans)
+    bucket = _batch_bucket(batch)
+    valid = [True] * batch if valid is None else [bool(v) for v in valid]
+    if len(valid) != batch or len(arrays_list) != batch:
+        raise ValueError("dispatch_plan_stacked: one plan, array list and "
+                         "validity flag per lane")
+    donor = next(a for a in arrays_list if a is not None)
+    dev = _on_device(device, [t for q in range(batch) if valid[q]
+                              for t in arrays_list[q] if t is not None],
+                     "dispatch_plan_stacked")
+    SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    plans_b = list(plans) + [plans[-1]] * (bucket - batch)
+    shared_slots, stacked_slots = stacked_slot_split(plans_b)
+    fn = _program(_STACKED_CACHE,
+                  (base.signature(k), bucket, stacked_slots, False),
+                  base, k, dev)
+    lanes: list = [None] * bucket
+    for q in range(batch):
+        if valid[q]:
+            arrays = list(arrays_list[q])
+            for slot in shared_slots:
+                arrays[slot] = donor[slot]
+            lanes[q] = (arrays, tuple(plans[q].scalars),
+                        int(plans[q].num_docs))
+    return _dispatch_lanes(base, k, fn, lanes, batch, dev)
+
+
+def readback_plan_stacked(dispatched: LaneDispatch) -> list:
+    """The group's one device→host copy, unpacked per lane; a masked lane
+    reads back as None."""
+    return _readback_lanes(dispatched)
 
 
 # --- predicate-mask fill --------------------------------------------------------

@@ -12,8 +12,11 @@ instead, so staging is admitted byte-exactly and residency is keyed by
 split id. Work that spans two chunks at the configured span (or the
 adaptive sizer's) runs as a resumable chunked scan (`search/chunkexec.py`):
 cancellable, preemptable and early-terminable at every chunk boundary,
-each chunk through the same `execute_plan`. Execution has no query batcher
-yet.
+each chunk through the same `execute_plan`. With a `QueryBatcher`
+(`search/batcher.py`), concurrent queries on one split share one dispatch:
+shape-compatible distinct queries stack into one lane group, or, under
+`QW_DISABLE_QBATCH`, same-array queries ride a convoy. The multi-split
+batch and mesh route and leaf offload come with later slices.
 `search_after` markers (numeric and string, one or two keys), the top-k
 threshold pushdown, a cached predicate mask (`mask_override`) and a subset
 of the aggregations (`aggs_override`) reach the device program through
@@ -44,6 +47,7 @@ from ..observability.profile import (
 )
 from ..query.aggregations import parse_aggs
 from ..tenancy.context import effective_tenant
+from .batcher import qbatch_enabled
 from .chunkexec import PREEMPT_GATE, maybe_execute_chunked
 from .executor import execute_plan
 from .models import (LeafSearchResponse, PartialHit, SearchRequest,
@@ -355,6 +359,7 @@ def execute_prepared_split(
     device=None,
     threshold_box=None,
     fault_injector=None,
+    batcher=None,
 ) -> LeafSearchResponse:
     """Stage 2: the leaf program and its single packed readback, decoded
     into hits and mergeable aggregation states. Work that spans two chunks
@@ -363,7 +368,14 @@ def execute_prepared_split(
     early termination and threshold tightening fed by `threshold_box`;
     `fault_injector` reaches its `kernel.chunk_yield` and
     `kernel.preempt_park` points. A scan cancelled mid-split answers with
-    the chunks it merged and a non-retryable cancel failure."""
+    the chunks it merged and a non-retryable cancel failure.
+
+    With a `QueryBatcher`, concurrent queries on this split share one
+    dispatch (search/batcher.py). With stacking on, the query enters the
+    batcher BEFORE the chunked check, so distinct shape-compatible queries
+    can group; a solo rider and a formed group both keep the resumable
+    chunked scan inside the batcher. Under `QW_DISABLE_QBATCH` the chunked
+    check comes first and only unchunked work rides a convoy."""
     ambient = current_deadline()
     if ambient is not None:
         # shed before launching a program whose result nobody can use; the
@@ -382,11 +394,23 @@ def execute_prepared_split(
     # fused splits register with the preempt gate too: their presence is
     # what tells a running chunked scan that higher-class work is waiting
     with PREEMPT_GATE.running(effective_tenant().priority):
-        result = maybe_execute_chunked(plan, k, device_arrays, device,
-                                       threshold_box=threshold_box,
-                                       fault_injector=fault_injector)
-        if result is None:
-            result = execute_plan(plan, k, device_arrays, device)
+        if batcher is not None and qbatch_enabled():
+            result = batcher.execute(plan, k, device_arrays,
+                                     split_key=id(reader),
+                                     threshold_box=threshold_box,
+                                     fault_injector=fault_injector,
+                                     device=device)
+        else:
+            result = maybe_execute_chunked(plan, k, device_arrays, device,
+                                           threshold_box=threshold_box,
+                                           fault_injector=fault_injector)
+            if result is None:
+                if batcher is not None:
+                    result = batcher.execute(plan, k, device_arrays,
+                                             split_key=id(reader),
+                                             device=device)
+                else:
+                    result = execute_plan(plan, k, device_arrays, device)
     # cancelled mid-scan with partial_on_cancel: keep the chunks already
     # merged, and flag the split so the response carries the cancel
     partial_cancel = bool(result.get("partial"))

@@ -46,15 +46,39 @@ from ..common import sync
 from ..common.faults import InjectedFault
 from ..observability import flight
 from ..observability.metrics import (
-    RESIDENT_BYTES, RESIDENT_COLUMN_HITS, RESIDENT_COLUMN_MISSES,
-    RESIDENT_EVICTIONS, RESIDENT_STAGING_CACHE_HITS,
+    QBATCH_SHARED_BYTES_AVOIDED_TOTAL, RESIDENT_BYTES, RESIDENT_COLUMN_HITS,
+    RESIDENT_COLUMN_MISSES, RESIDENT_EVICTIONS, RESIDENT_READBACKS_SHED,
+    RESIDENT_STAGING_CACHE_HITS,
 )
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["RESIDENT_BYTES", "RESIDENT_COLUMN_HITS", "RESIDENT_COLUMN_MISSES",
-           "RESIDENT_EVICTIONS", "RESIDENT_STAGING_CACHE_HITS",
-           "ResidentColumnStore", "SplitColumns"]
+           "RESIDENT_EVICTIONS", "RESIDENT_READBACKS_SHED",
+           "RESIDENT_STAGING_CACHE_HITS", "ResidentColumnStore",
+           "SplitColumns", "note_group_shared_staging"]
+
+
+def note_group_shared_staging(plans, live_lanes: int) -> int:
+    """Residency accounting for a stacked multi-query dispatch
+    (search/batcher.py): operand slots whose cache key agrees across the
+    group serve every lane from one staged tensor, so each such slot is a
+    (live_lanes - 1)-fold staging the resident store did not have to
+    absorb. Records the avoided bytes under the qbatch family and the
+    per-column hit counters (the shared slots ARE resident-store serves:
+    identical keys alias the same staged tensor), returns the byte
+    count."""
+    if live_lanes <= 1 or not plans:
+        return 0
+    from .executor import stacked_slot_split
+    shared_slots, _stacked = stacked_slot_split(plans)
+    if not shared_slots:
+        return 0
+    nbytes = sum(plans[0].arrays[s].nbytes for s in shared_slots) \
+        * (live_lanes - 1)
+    QBATCH_SHARED_BYTES_AVOIDED_TOTAL.inc(nbytes)
+    RESIDENT_COLUMN_HITS.inc(len(shared_slots) * (live_lanes - 1))
+    return nbytes
 
 
 class _NotifyingCache(dict):

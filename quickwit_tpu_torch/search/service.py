@@ -6,21 +6,22 @@ Role of the reference's `SearchService` trait + `SearchServiceImpl`
 of one index on this node — split reordering for pruning
 (`CanSplitDoBetter`), the three cache tiers, per-split execution with
 byte-exact HBM admission over device-resident columns (each split's
-program may run as a resumable chunked scan, search/chunkexec.py, fed the
-query's threshold box and the context's fault injector), and partial
-failure collection.
+program goes through the context's query batcher, search/batcher.py, so
+concurrent queries on one split share a dispatch, and may run as a
+resumable chunked scan, search/chunkexec.py, fed the query's threshold box
+and the context's fault injector), and partial failure collection.
 
 The SearcherContext owns the caches (readers, resident columns per split,
-leaf responses, predicate masks, partial aggregations) and the admission
-budget — the roles of the reference's SearcherContext (`service.rs:405`)
-and SearchPermitProvider. One context serves one device: its resident
-store and budget hold only that device's tensors.
+leaf responses, predicate masks, partial aggregations), the admission
+budget and the query batcher — the roles of the reference's SearcherContext
+(`service.rs:405`) and SearchPermitProvider. One context serves one device:
+its resident store, budget and batcher hold only that device's tensors.
 
 Counterpart of the JAX package's `search/service.py`, per-split route only:
 every split group runs split by split, which is the JAX service's own route
 when `batch_size=1` or the Tier A/B caches apply. The fused multi-split
-batch and mesh route, the query batcher, leaf offload and `fetch_docs`
-come with later slices.
+batch and mesh route, leaf offload and `fetch_docs` come with later
+slices.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..tenancy.overload import OverloadShed
 from ..tenancy.registry import TenantRateLimited
 from .admission import HbmBudget
 from .agg_cache import PartialAggCache, agg_shape_digest
+from .batcher import QueryBatcher
 from .cache import (LeafSearchCache, canonical_filter_digest,
                     canonical_request_key)
 from .collector import IncrementalCollector
@@ -159,6 +161,10 @@ class SearcherContext:
         self.resident_store = (
             ResidentColumnStore(fault_injector=fault_injector)
             if resident_columns else None)
+        # cross-query dispatch coalescing: concurrent queries on one split
+        # ride one dispatch (search/batcher.py; reference analogue:
+        # per-node leaf request batching, leaf.rs:81)
+        self.query_batcher = QueryBatcher()
         self._readers: OrderedDict[str, SplitReader] = OrderedDict()
         self._max_open_splits = max_open_splits
         self._lock = sync.lock("SearchService._lock")
@@ -788,7 +794,8 @@ class SearchService:
                     search_request, doc_mapper, reader, split.split_id,
                     plan, device_arrays, context.device,
                     threshold_box=threshold,
-                    fault_injector=context.fault_injector)
+                    fault_injector=context.fault_injector,
+                    batcher=context.query_batcher)
                 if cache_ctx is not None and cache_ctx["agg_hits"]:
                     # Tier B hits join the response BEFORE the leaf-cache
                     # put and the merge — the cached LeafSearchResponse
