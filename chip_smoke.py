@@ -188,6 +188,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             windows of both, and `score_topk_lanes` at the rare-term shape
             (per call, graph replay, Q solo launches by graph replay, the
             plain version, one `torch.topk` over [Q, P] scores, the bound).
+11. fanout: the multi-split batch (`parallel/fanout.py`), with the
+            counters zeroed again; every comparison and timing launch is
+            counted apart. Splits in RAM storage: 64 otel splits of 524,288
+            docs (seeds 0..63: `bench.py`'s config 5, 33.5M docs) and 8
+            hdfs splits of 524,288 docs (seeds 100..107). Each batch on the
+            card is one program with no solo `score_topk` launch and must
+            equal the per-split route merged by the collector on the card
+            (f64 sums to rtol 1e-12, all else exactly):
+            - c5: MatchAll, percentiles of span_duration_micros, max_hits=0
+              over the 64 otel splits; over the first 8, the batch on the
+              card equals the batch on the CPU;
+            - the flagship over the 8 hdfs splits: one `score_topk_lanes`
+              launch (against 8 `score_topk` launches per split); each
+              lane's P is printed;
+            - c2_bool_range_top100 and c2 by (timestamp, tenant_id) over
+              the same splits;
+            - `SearchService.leaf_search` over the 64 otel ids (Tiers A
+              and B off, which would each route a max_hits=0 request per
+              split: 8 pipelined batch groups) and over the 8 hdfs ids
+              with the flagship (1 batch), each equal to a `batch_size=1`
+              service: the `dispatch.launch` flight events with path
+              "batch" and the programs must number 8 and 1, and a repeat
+              stages 0 bytes;
+            - a deadline that passes between dispatch and readback: the
+              dispatch is abandoned, `qw_resident_readbacks_shed_total`
+              rises by 1 and every split fails retryably.
+            Then each batch timed in turns with its per-split calls (wall
+            p50/p90, profiler windows, bytes staged per warm call, the
+            batch's device bytes, splits per second of device time), and
+            `score_topk_lanes` at the flagship's 8 unequal lanes.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -518,9 +548,13 @@ def doc_space_requests(SearchRequest, SortField, Bool, Range, RangeBound,
     }
 
 
-def hit_key(resp):
+def hit_tuples(hits):
     return [(h.split_id, h.doc_id, h.sort_value, h.raw_sort_value,
-             h.sort_value2, h.raw_sort_value2) for h in resp.partial_hits]
+             h.sort_value2, h.raw_sort_value2) for h in hits]
+
+
+def hit_key(resp):
+    return hit_tuples(resp.partial_hits)
 
 
 def response_key(resp):
@@ -1302,6 +1336,8 @@ def check_service(torch, st, mods, storage, num_docs, reqs, dev, iters,
     del data
 
     def context(device, **kw):
+        # the per-split route (phase 11 drives the batch route)
+        kw.setdefault("batch_size", 1)
         ctx = svc_mod.SearcherContext(storage_resolver=resolver,
                                       device=device, **kw)
         return svc_mod.SearchService(ctx), ctx
@@ -2301,19 +2337,24 @@ def check_stacking(torch, st, m, reader, otel_reader, open_so_reader,
         ce.CHUNKING, ce.CHUNK_SIZER = saved
 
 
-def lanes_kernel_row(torch, st, score_postings, staged, iters, flush, label):
-    """score_topk_lanes at the rare-term group's shape: per call and by
-    graph replay, beside the Q solo launches by graph replay, the plain
-    version, one `torch.topk` over the group's [Q, P] precomputed scores,
-    and the bound. Returns (row, max abs error)."""
+def lanes_kernel_row(torch, st, score_postings, staged, iters, flush, label,
+                     at="rare_terms"):
+    """score_topk_lanes at a lane group's shape (`staged`: (plan, arrays)
+    per lane, the lanes' P may differ): per call and by graph replay,
+    beside the Q solo launches by graph replay, the plain version, one
+    `torch.topk` over the group's [Q, P_max] precomputed scores (shorter
+    lanes padded with -inf), and the bound. Returns (row, max abs
+    error)."""
     lanes = []
     for plan, arrays in staged:
         root = plan.root
         lanes.append((arrays[root.ids_slot], arrays[root.tfs_slot],
                       arrays[root.norm_slot], plan.scalars[root.idf_slot],
                       plan.scalars[root.avg_len_slot], plan.num_docs))
-    q, P = len(lanes), lanes[0][0].shape[0]
-    k = min(10, P)
+    q = len(lanes)
+    sizes = [lane[0].shape[0] for lane in lanes]
+    P = max(sizes)
+    k = min(10, min(sizes))
     kernel_ms = cuda_ms(torch, lambda: st.score_topk_lanes(lanes, k), iters,
                         flush)
     replay_ms = graph_ms(torch, lambda: st.score_topk_lanes(lanes, k),
@@ -2326,9 +2367,10 @@ def lanes_kernel_row(torch, st, score_postings, staged, iters, flush, label):
     solo_replay_ms = graph_ms(torch, solos, iters, flush)
     plain_ms = cuda_ms(torch, lambda: st.score_topk_lanes_reference(
         lanes, k), iters, flush)
-    scores = torch.stack([torch.where(
+    scores = torch.stack([torch.nn.functional.pad(torch.where(
         (tfs > 0) & (ids < nd), score_postings(tfs, ids, norms, avg, idf),
-        float("-inf")) for ids, tfs, norms, idf, avg, nd in lanes])
+        float("-inf")), (0, P - ids.shape[0]), value=float("-inf"))
+        for ids, tfs, norms, idf, avg, nd in lanes])
     library_ms = cuda_ms(torch, lambda: torch.topk(scores, k, dim=1),
                          iters, flush)
     got = st.score_topk_lanes(lanes, k)
@@ -2341,21 +2383,346 @@ def lanes_kernel_row(torch, st, score_postings, staged, iters, flush, label):
                                        num_valid, k))
     # bytes: each lane's ids + tfs + one gathered norm per posting, read
     # once (PR 2's model), and the [Q, k] (f32, i64) winners written once
-    nbytes = q * (12 * P + 12 * k)
+    nbytes = 12 * sum(sizes) + q * 12 * k
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = 11 * q * P / H100_F32_OPS_PER_S * 1e3
-    say(f"[{label}] kernel score_topk_lanes @rare_terms: Q={q} P={P} k={k} "
+    ops_ms = 11 * sum(sizes) / H100_F32_OPS_PER_S * 1e3
+    shape = f"P={P}" if len(set(sizes)) == 1 else f"P={sizes}"
+    say(f"[{label}] kernel score_topk_lanes @{at}: Q={q} {shape} k={k} "
         f"ms={kernel_ms:.5f} graph_replay_ms={replay_ms:.5f} "
         f"q_solo_graph_replay_ms={solo_replay_ms:.5f} plain_ms="
         f"{plain_ms:.5f} library_ms(torch.topk over [Q, P] scores)="
         f"{library_ms:.5f} bound_ms={max(bytes_ms, ops_ms):.7f} "
         f"(bytes={nbytes}, ops_ms={ops_ms:.7f}) max_abs_err={err}")
-    return {"at": "rare_terms", "Q": q, "P": P, "k": k, "ms": kernel_ms,
+    return {"at": at, "Q": q, "P": P if len(set(sizes)) == 1 else sizes,
+            "k": k, "ms": kernel_ms,
             "graph_replay_ms": replay_ms,
             "q_solo_graph_replay_ms": solo_replay_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}, err
+
+
+# --------------------------------------------------------------------------
+# phase 11: the multi-split fan-out
+
+FANOUT_OTEL_SPLITS = 64        # bench.py's OTEL_SPLITS x OTEL_DOCS, seeds
+FANOUT_OTEL_DOCS = 524_288     # 0..63: BASELINE config 5
+FANOUT_HDFS_SPLITS = 8         # one service group (batch_size 8)
+FANOUT_HDFS_DOCS = 524_288
+FANOUT_HDFS_SEED = 100         # seeds 100..107: used by no other phase
+
+
+def widened_ints(tree):
+    """Integer arrays as int64: a batch merges int32 counts into int64 (as
+    the JAX batch does), the collector keeps int32."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k: widened_ints(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(widened_ints(v) for v in tree)
+    if isinstance(tree, np.ndarray) and tree.dtype.kind in "iu":
+        return tree.astype(np.int64)
+    return tree
+
+
+def busy_ms(summary: str) -> float:
+    """The device busy ms per call of a `device_profile` summary."""
+    return float(summary.split("device_busy_ms_per_call=")[1].split()[0])
+
+
+def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
+                 otel_splits=FANOUT_OTEL_SPLITS, otel_docs=FANOUT_OTEL_DOCS,
+                 hdfs_splits=FANOUT_HDFS_SPLITS,
+                 hdfs_docs=FANOUT_HDFS_DOCS) -> dict:
+    """Phase 11: the multi-split batch (`parallel/fanout.py`) on the card,
+    each response against the per-split route merged by the collector;
+    then the service's batch route, the deadline shed, and the timings.
+    The path's launch counts start at 0 and leave out every comparison and
+    timing launch. Returns the path's launches, the lane kernel's row at
+    the fan-out's shape and the largest kernel error."""
+    fan, metrics = m.fanout, m.metrics
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def counter(name):
+        return getattr(metrics, name).get()
+
+    storage = m.RamStorage(m.Uri.parse("ram:///chip_fanout"))
+    t0 = time.perf_counter()
+    otel_ids = [f"otel{s:02d}" for s in range(otel_splits)]
+    otel_bytes = 0
+    for s, split_id in enumerate(otel_ids):
+        data = m.synthetic_otel_split(otel_docs, seed=s)
+        otel_bytes += len(data)
+        storage.put(f"{split_id}.split", data)
+    otel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdfs_ids = [f"hdfs{i}" for i in range(hdfs_splits)]
+    hdfs_bytes = 0
+    for i, split_id in enumerate(hdfs_ids):
+        data = m.synthetic_hdfs_split(hdfs_docs, seed=FANOUT_HDFS_SEED + i)
+        hdfs_bytes += len(data)
+        storage.put(f"{split_id}.split", data)
+    del data
+    say(f"fanout splits: otel {otel_splits} x {otel_docs} docs (seeds 0.."
+        f"{otel_splits - 1}) bytes={otel_bytes} build_s={otel_s:.3f}; hdfs "
+        f"{hdfs_splits} x {hdfs_docs} docs (seeds {FANOUT_HDFS_SEED}.."
+        f"{FANOUT_HDFS_SEED + hdfs_splits - 1}) bytes={hdfs_bytes} build_s="
+        f"{time.perf_counter() - t0:.3f}")
+
+    def readers(ids):
+        return [m.SplitReader(storage, f"{split_id}.split")
+                for split_id in ids]
+
+    otel_readers, hdfs_readers = readers(otel_ids), readers(hdfs_ids)
+    c5 = m.SearchRequest(
+        index_ids=["otel-traces"], query_ast=m.MatchAll(), max_hits=0,
+        aggs={"latency": {"percentiles": {"field": "span_duration_micros",
+                                          "percents": [50, 95, 99]}}})
+
+    def per_split(req, mapper, split_readers, ids, device=dev):
+        collector = m.IncrementalCollector(req.max_hits, req.start_offset)
+        for split_id, reader in zip(ids, split_readers):
+            collector.add_leaf_response(m.leaf_search_single_split(
+                req, mapper, reader, split_id, device=device))
+        return collector
+
+    def same_as_per_split(name, got, want):
+        merged = m.IncrementalCollector(want.max_hits, want.start_offset)
+        merged.add_leaf_response(got)
+        if (merged.num_hits != want.num_hits
+                or hit_tuples(merged.partial_hits())
+                != hit_tuples(want.partial_hits())):
+            raise AssertionError(f"fanout {name}: hits differ from the "
+                                 "per-split merge")
+        assert_aggs_close(widened_ints(want.aggregation_states()),
+                          widened_ints(merged.aggregation_states()),
+                          f"fanout {name} aggs")
+
+    def run_batch(name, req, mapper, split_readers, ids, lanes=None):
+        """The batch on the card, checked against the per-split route on
+        the card: one program, no solo score_topk launch, `lanes` lane
+        launches (when given)."""
+        batch = fan.build_batch(req, mapper, split_readers, ids)
+        k0, l0 = counts()
+        p0 = counter("SEARCH_KERNEL_LAUNCHES_TOTAL")
+        got = fan.execute_batch(batch, req, device=dev)
+        seen = {"programs": int(counter("SEARCH_KERNEL_LAUNCHES_TOTAL") - p0),
+                "score_topk": st.score_topk.launches - k0,
+                "score_topk_lanes": st.score_topk_lanes.launches - l0}
+        k1 = st.score_topk.launches
+        want = per_split(req, mapper, split_readers, ids)
+        seen["per_split_score_topk"] = st.score_topk.launches - k1
+        st.score_topk.launches = k1
+        same_as_per_split(name, got, want)
+        say(f"fanout {name}: splits={len(ids)} num_hits={got.num_hits} "
+            f"{json.dumps(seen)} equal_to_per_split=True")
+        if (seen["programs"] != 1 or seen["score_topk"] != 0
+                or (lanes is not None and seen["score_topk_lanes"] != lanes)):
+            raise AssertionError(f"fanout {name}: {seen}")
+        return batch, got
+
+    st.score_topk.launches = st.score_topk_lanes.launches = 0
+
+    # a. config 5 at the bench's size: one batch of 64 splits
+    batch5, got5 = run_batch("c5_otel_percentiles_64splits", c5,
+                             m.OTEL_BENCH_MAPPER, otel_readers, otel_ids,
+                             lanes=0)
+    if got5.num_hits != otel_splits * otel_docs:
+        raise AssertionError("fanout c5: not every doc counted")
+    head = fan.build_batch(c5, m.OTEL_BENCH_MAPPER, otel_readers[:8],
+                           otel_ids[:8])
+    gpu8 = fan.execute_batch(head, c5, device=dev)
+    cpu8 = aside(fan.execute_batch, fan.build_batch(
+        c5, m.OTEL_BENCH_MAPPER, otel_readers[:8], otel_ids[:8]), c5,
+        device="cpu")
+    if response_key(gpu8) != response_key(cpu8):
+        raise AssertionError("fanout c5 over 8 splits: cuda differs from "
+                             "cpu")
+    say("fanout c5 over the first 8 splits: equal_to_cpu=True")
+
+    # b. the flagship over the 8 hdfs splits: one lane launch
+    batch_f, _ = run_batch("flagship_8splits", reqs["flagship"],
+                           m.HDFS_MAPPER, hdfs_readers, hdfs_ids, lanes=1)
+    root = batch_f.template.root
+    sizes = [p.arrays[root.ids_slot].shape[0] for p in batch_f.plans]
+    say(f"fanout flagship lanes: P={sizes}")
+
+    # c. doc space and two keys over the same splits (checked, not timed)
+    for name in ("c2_bool_range_top100", "c2_ts_tenant_top100"):
+        run_batch(name + "_8splits", reqs[name], m.HDFS_MAPPER,
+                  hdfs_readers, hdfs_ids, lanes=0)
+
+    # d. through the service, each against the per-split route
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda _uri: storage)
+
+    def offsets(ids, num_docs):
+        return [m.models.SplitIdAndFooter(
+            split_id, "ram:///chip_fanout",
+            storage.file_num_bytes(f"{split_id}.split"), num_docs=num_docs)
+            for split_id in ids]
+
+    def service(**kw):
+        ctx = m.svc_mod.SearcherContext(storage_resolver=resolver,
+                                        device=dev, **kw)
+        return m.svc_mod.SearchService(ctx), ctx
+
+    def leaf(svc, req, splits, deadline_millis=None):
+        return svc.leaf_search(m.models.LeafSearchRequest(
+            search_request=req, index_uid="fanout:0",
+            doc_mapping=(m.OTEL_BENCH_MAPPER if splits[0].split_id
+                         .startswith("otel") else m.HDFS_MAPPER).to_dict(),
+            splits=splits, deadline_millis=deadline_millis))
+
+    otel_offsets = offsets(otel_ids, otel_docs)
+    hdfs_offsets = offsets(hdfs_ids, hdfs_docs)
+    services = {}
+    for name, req, splits, kw, groups in (
+            # max_hits=0 sorts by _doc, which Tier A serves per split, and
+            # Tier B serves agg-only requests per split: both tiers off
+            ("c5_otel_64splits", c5, otel_offsets,
+             {"enable_agg_cache": False, "enable_mask_cache": False},
+             -(-otel_splits // 8)),
+            ("flagship_8splits", reqs["flagship"], hdfs_offsets, {}, 1)):
+        svc, ctx = service(**kw)
+        single, _ = service(batch_size=1, **kw)
+        services[name] = (svc, ctx, req, splits)
+        m.flight.FLIGHT.begin_run()
+        p0 = counter("SEARCH_KERNEL_LAUNCHES_TOTAL")
+        got = leaf(svc, req, splits)
+        programs = int(counter("SEARCH_KERNEL_LAUNCHES_TOTAL") - p0)
+        batch_events = [e for e in m.flight.FLIGHT.events()
+                        if e["kind"] == "dispatch.launch"
+                        and e["attrs"].get("path") == "batch"]
+        want = aside(leaf, single, req, splits)
+        if (got.failed_splits or got.num_hits != want.num_hits
+                or hit_key(got) != hit_key(want)):
+            raise AssertionError(f"fanout service {name}: differs from the "
+                                 "per-split route")
+        assert_aggs_close(widened_ints(want.intermediate_aggs),
+                          widened_ints(got.intermediate_aggs),
+                          f"fanout service {name} aggs")
+        s0 = counter("STAGING_BYTES_TOTAL")
+        again = leaf(svc, req, splits)
+        repeat_staged = int(counter("STAGING_BYTES_TOTAL") - s0)
+        say(f"fanout service {name}: batch_dispatch_events="
+            f"{len(batch_events)} programs={programs} (per-split "
+            f"dispatches={programs - len(batch_events)}) splits_per_batch="
+            f"{[e['attrs']['splits'] for e in batch_events]} "
+            f"repeat_staged_bytes={repeat_staged} budget="
+            f"{json.dumps(ctx.hbm_budget.stats()['resident'])} store_bytes="
+            f"{ctx.resident_store.stats()['bytes']} "
+            "equal_to_per_split_route=True")
+        if (len(batch_events) != groups or programs != groups
+                or repeat_staged != 0
+                or response_key(again) != response_key(got)
+                or ctx.hbm_budget.stats()["resident"]
+                != ctx.resident_store.stats()["bytes"]):
+            raise AssertionError(f"fanout service {name}")
+
+    # e. a deadline that passes between dispatch and readback
+    svc, ctx, req, splits = services["flagship_8splits"]
+    real_dispatch, real_abandon = m.svc_mod.dispatch_batch, \
+        m.svc_mod.abandon_dispatch
+    abandoned = []
+
+    def dispatch_then_expire(batch, request, device=None):
+        out = real_dispatch(batch, request, device)
+        m.deadline.current_deadline()._expires_at = float("-inf")
+        return out
+
+    def abandon(dispatched):
+        abandoned.append(dispatched)
+        real_abandon(dispatched)
+
+    m.svc_mod.dispatch_batch = dispatch_then_expire
+    m.svc_mod.abandon_dispatch = abandon
+    try:
+        shed0 = counter("RESIDENT_READBACKS_SHED")
+        shed = leaf(svc, dataclasses.replace(req, max_hits=9), splits,
+                    deadline_millis=600_000)
+    finally:
+        m.svc_mod.dispatch_batch = real_dispatch
+        m.svc_mod.abandon_dispatch = real_abandon
+    failed = sorted(f.split_id for f in shed.failed_splits)
+    retryable = all(f.retryable for f in shed.failed_splits)
+    say(f"fanout deadline shed: abandoned={len(abandoned)} "
+        f"qw_resident_readbacks_shed_total+="
+        f"{counter('RESIDENT_READBACKS_SHED') - shed0:.0f} failed_splits="
+        f"{len(failed)} retryable={retryable} "
+        f"pinned={ctx.hbm_budget.stats()['pinned']}")
+    if (len(abandoned) != 1 or counter("RESIDENT_READBACKS_SHED") - shed0 != 1
+            or failed != sorted(hdfs_ids) or not retryable
+            or ctx.hbm_budget.stats()["pinned"] != 0):
+        raise AssertionError("fanout deadline shed")
+    path = {"score_topk": st.score_topk.launches,
+            "score_topk_lanes": st.score_topk_lanes.launches}
+    say(f"fanout launches: {json.dumps(path)}")
+    if path["score_topk"] != 0 or path["score_topk_lanes"] < 1:
+        raise AssertionError(f"fanout launches: {path}")
+
+    # f. timing, in turns with the per-split calls
+    os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
+    for name, batch, req, mapper, split_readers, ids in (
+            ("c5_otel_64splits", batch5, c5, m.OTEL_BENCH_MAPPER,
+             otel_readers, otel_ids),
+            ("flagship_8splits", batch_f, reqs["flagship"], m.HDFS_MAPPER,
+             hdfs_readers, hdfs_ids)):
+
+        def one_batch(batch=batch, req=req):
+            fan.execute_batch(batch, req, device=dev)
+
+        def split_calls(req=req, mapper=mapper, split_readers=split_readers,
+                        ids=ids):
+            for split_id, reader in zip(ids, split_readers):
+                m.leaf_search_single_split(req, mapper, reader, split_id,
+                                           device=dev)
+
+        aside(one_batch)
+        aside(split_calls)
+        walls, split_walls = [], []
+        s0 = counter("STAGING_BYTES_TOTAL")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            aside(one_batch)
+            t1 = time.perf_counter()
+            aside(split_calls)
+            walls.append((t1 - t0) * 1e3)
+            split_walls.append((time.perf_counter() - t1) * 1e3)
+        staged = (counter("STAGING_BYTES_TOTAL") - s0) / iters
+        prof = aside(device_profile, torch, one_batch, 3, os.path.join(
+            here, "chip_traces", f"trace_fanout_batch_{name}.json"))
+        split_prof = aside(device_profile, torch, split_calls, 3,
+                           os.path.join(here, "chip_traces",
+                                        f"trace_fanout_splits_{name}.json"))
+        device_ms = busy_ms(prof)
+        say(f"[{label}] fanout timing {name}: splits={len(ids)} batch_p50_ms="
+            f"{pct(walls, 0.5):.4f} batch_p90_ms={pct(walls, 0.9):.4f} "
+            f"split_calls_p50_ms={pct(split_walls, 0.5):.4f} "
+            f"split_calls_p90_ms={pct(split_walls, 0.9):.4f} iters={iters} "
+            f"staged_bytes_per_warm_call={staged:.0f} batch_device_bytes="
+            f"{fan.per_device_bytes(batch)} splits_per_s_of_device_time="
+            f"{len(ids) / (device_ms / 1e3):.1f}")
+        say(f"[{label}] profile fanout batch {name}: {prof}")
+        say(f"[{label}] profile {len(ids)} split calls {name}: {split_prof}")
+        if staged != 0:
+            raise AssertionError(f"fanout timing {name}: a warm batch staged "
+                                 f"{staged} bytes")
+    lanes = fan.stage_device_inputs(batch_f, dev)
+    row, err = aside(lanes_kernel_row, torch, st, m.score_postings,
+                     list(zip(batch_f.plans, lanes)), iters, flush, label,
+                     at="fanout_flagship_8splits")
+    return {"launches": path, "row": row, "err": err}
 
 
 def main(argv=None) -> int:
@@ -2645,6 +3012,28 @@ def main(argv=None) -> int:
     so_dir.cleanup()
     say(f"stacking phase_s={time.perf_counter() - t0:.3f}")
 
+    # 11. the multi-split fan-out, with the counters zeroed again ----------
+    t0 = time.perf_counter()
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    from quickwit_tpu_torch.observability import flight
+    from quickwit_tpu_torch.parallel import fanout
+    fanned = check_fanout(
+        torch, st, SimpleNamespace(
+            fanout=fanout, metrics=metrics, flight=flight,
+            deadline=deadline_mod, svc_mod=svc_mod, models=search_models,
+            Protocol=Protocol, StorageResolver=StorageResolver,
+            RamStorage=RamStorage, Uri=Uri, SplitReader=SplitReader,
+            HDFS_MAPPER=HDFS_MAPPER, OTEL_BENCH_MAPPER=OTEL_BENCH_MAPPER,
+            SearchRequest=SearchRequest, MatchAll=MatchAll,
+            IncrementalCollector=IncrementalCollector,
+            leaf_search_single_split=leaf_search_single_split,
+            synthetic_hdfs_split=synthetic_hdfs_split,
+            synthetic_otel_split=synthetic_otel_split,
+            score_postings=score_postings),
+        dev, args.iters, label, here, flush, {**requests, **doc_reqs})
+    del flush_buf
+    say(f"fanout phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -2660,7 +3049,8 @@ def main(argv=None) -> int:
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
                      + chunked["launches"]
-                     + stacking["launches"]["score_topk"]),
+                     + stacking["launches"]["score_topk"]
+                     + fanned["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2672,14 +3062,16 @@ def main(argv=None) -> int:
         "name": "score_topk_lanes", "route": "cuda",
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
-        # the stacking phase's path: the fused groups, the convoy, one per
-        # chunk of the chunked groups and the service's group
-        "launches": stacking["launches"]["score_topk_lanes"],
-        "max_abs_err": max(lanes_err, stacking["err"]),
+        # the stacking phase's path (the fused groups, the convoy, one per
+        # chunk of the chunked groups and the service's group) and the
+        # fan-out's (one per batch of at most 16 splits)
+        "launches": (stacking["launches"]["score_topk_lanes"]
+                     + fanned["launches"]["score_topk_lanes"]),
+        "max_abs_err": max(lanes_err, stacking["err"], fanned["err"]),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")},
-        "shapes": [stacking["row"]],
+        "shapes": [stacking["row"], fanned["row"]],
     }]
     say(label)
     say(json.dumps({"kernels": kernels}))

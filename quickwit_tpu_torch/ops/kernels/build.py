@@ -6,7 +6,8 @@ and loaded with `ctypes`. The library's file name carries a hash of the
 source and flags, so an edited source is rebuilt and a built one is reused.
 `-Xptxas -v` makes ptxas report each kernel's registers, shared memory and
 spills; that report is kept beside the library (`ptxas_report`). Nothing
-here runs when a module is imported.
+here runs when a module is imported. A source that cannot be built, and a
+kernel that fails to launch, raise `KernelError`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,12 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of this package could not be built, loaded or launched: a
+    fault of the device path, which no caller may answer by rerunning the
+    work another way."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: `$CUDA_HOME/bin/nvcc`, else the one on PATH, else
     the one under the CUDA toolkit's default install prefix (as PyTorch's
@@ -46,7 +53,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    raise KernelError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
 def library_path(name: str) -> Path:
@@ -77,7 +84,7 @@ def build(name: str) -> Path:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     _report_path(target).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, target)   # atomic: concurrent builders never see half
     BUILD_SECONDS[name] = time.perf_counter() - t0

@@ -41,6 +41,7 @@ import threading
 
 import torch
 
+from . import build
 from ..bm25 import B, K1, score_postings
 from ..topk import exact_topk
 
@@ -118,7 +119,6 @@ def _check(ids, tfs, fieldnorms, k) -> None:
 
 
 def _library():
-    from . import build
     lib = build.load("score_topk")
     if not getattr(lib, "_qw_typed", False):
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
@@ -156,8 +156,8 @@ def _grid_limits(query, kernel: str, dev: torch.device) -> tuple[int, int]:
             for k in (1, MAX_K):   # one kernel variant each
                 err = query(k, ctypes.byref(out))
                 if err:
-                    raise RuntimeError(f"{kernel}: occupancy query failed: "
-                                       f"CUDA error {err}")
+                    raise build.KernelError(
+                        f"{kernel}: occupancy query failed: CUDA error {err}")
                 found.append(out.value)
             limits = _GRID_LIMITS[(kernel, dev.index)] = (found[0], found[1])
         return limits
@@ -171,7 +171,7 @@ def _workspace(kernel: str, dev: torch.device, stream: int,
         workspace = _WORKSPACES.get((kernel, dev.index, stream))
         if workspace is None:
             if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
+                raise build.KernelError(
                     f"{kernel}: its workspace is made on a stream's first "
                     "call; call it once on this stream before capturing a "
                     "CUDA graph")
@@ -195,7 +195,8 @@ def _launch(ids, tfs, fieldnorms, idf, avg_len, num_docs: int, k: int):
         *_host_scalars(idf, avg_len), k, limits[k > 32],
         workspace.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"score_topk launch failed: CUDA error {err}")
+        raise build.KernelError(
+            f"score_topk launch failed: CUDA error {err}")
     score_topk.launches += 1
     return out_vals, out_idx
 
@@ -271,7 +272,8 @@ def _launch_lanes(lanes, k: int):
         ctypes.addressof(table), len(lanes), k, limits[k > 32],
         workspace.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"score_topk_lanes launch failed: CUDA error {err}")
+        raise build.KernelError(
+            f"score_topk_lanes launch failed: CUDA error {err}")
     score_topk_lanes.launches += 1
     return out_vals, out_idx
 

@@ -6,7 +6,8 @@ higher-is-better f64 key, ties broken by **ascending index**, which is
 `lax.top_k`'s lowest-index-wins rule in the JAX package.
 
 Counterpart of the JAX package's `ops/topk.py`: the constants,
-`exact_topk`, `exact_topk_2key`, `apply_threshold_mask`,
+`exact_topk`, `exact_topk_2key`, their row-wise forms `batched_topk` and
+`batched_topk_2key`, `segment_merge_by_query`, `apply_threshold_mask`,
 `block_max_threshold_mask`, `_pad_to_block` and the chunked scan's host
 merge `merge_topk_chunks`. The JAX package's
 `guided_topk` (an f32 screen that re-dispatches through `exact_topk`
@@ -150,6 +151,65 @@ def exact_topk_2key(key1: torch.Tensor, key2: torch.Tensor, k: int):
     else:
         pos = lexsort(a, b)[:k]
     return key1[pos], key2[pos], pos
+
+
+def batched_topk(x: torch.Tensor, k: int):
+    """Per-row exact top-k over a stacked [Q, N] key matrix: `exact_topk`
+    on each row, so each row ranks bit for bit as it would alone (the JAX
+    package's `vmap` over `exact_topk`). Returns (vals [Q, k], int64
+    positions [Q, k])."""
+    rows = [exact_topk(row, k) for row in x]
+    return (torch.stack([v for v, _ in rows]),
+            torch.stack([p for _, p in rows]))
+
+
+def batched_topk_2key(key1: torch.Tensor, key2: torch.Tensor, k: int):
+    """Two-key form of `batched_topk` over stacked [Q, N] key matrices.
+    Returns (key1_top [Q, k], key2_top [Q, k], int64 positions [Q, k])."""
+    rows = [exact_topk_2key(a, b, k) for a, b in zip(key1, key2)]
+    return tuple(torch.stack([row[i] for row in rows]) for i in range(3))
+
+
+def segment_merge_by_query(values: torch.Tensor, query_ids: torch.Tensor,
+                           num_queries: int, op: str) -> torch.Tensor:
+    """Mergeable-agg reduction of the rows of `values` ([R] or [R, ...])
+    segmented by `query_ids` ([R], each in [0, num_queries)): "sum", "min"
+    or "max" per segment, as `jax.ops.segment_sum/min/max`. An empty
+    segment holds the op's identity (0; the dtype's max for "min", its min
+    for "max").
+
+    Each segment's sum folds its rows in ascending row order, as the JAX
+    `segment_sum` does: round r adds every segment's r-th row, so no two
+    rows of a segment meet in one scatter and the order does not depend on
+    the device's atomics. Min and max are order-free."""
+    if op not in ("sum", "min", "max"):
+        raise ValueError(f"unmergeable segment op: {op!r}")
+    ids = query_ids.to(torch.int64)
+    shape = (num_queries,) + tuple(values.shape[1:])
+    if op == "sum":
+        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
+        order = torch.argsort(ids, stable=True)
+        sorted_ids = ids[order]
+        counts = torch.bincount(sorted_ids, minlength=num_queries)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(ids.shape[0], device=ids.device) \
+            - starts[sorted_ids]
+        for r in range(int(counts.max()) if ids.numel() else 0):
+            rows = order[rank == r]
+            out.index_add_(0, ids[rows], values[rows])
+        return out
+    if values.dtype.is_floating_point:
+        identity = float("inf") if op == "min" else float("-inf")
+    elif values.dtype == torch.bool:
+        identity = op == "min"
+    else:
+        info = torch.iinfo(values.dtype)
+        identity = info.max if op == "min" else info.min
+    out = torch.full(shape, identity, dtype=values.dtype,
+                     device=values.device)
+    index = ids.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return out.scatter_reduce(0, index, values,
+                              "amin" if op == "min" else "amax")
 
 
 def apply_threshold_mask(keyed: torch.Tensor, threshold) -> torch.Tensor:

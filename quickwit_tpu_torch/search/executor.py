@@ -553,20 +553,35 @@ def _fused_lane(plan: LoweredPlan, arrays, scalars, num_docs) -> tuple:
             scalars[root.avg_len_slot], num_docs)
 
 
+def _widen(keyed: torch.Tensor, width) -> torch.Tensor:
+    """`keyed` extended with -inf lanes to `width`: a multi-split batch
+    lane's operand length in the JAX package's stacked program, where every
+    lane pads to the batch's longest (parallel/fanout.py). The pads rank
+    below every real lane but -NaN, at the highest indices, as the stacked
+    program's pad postings and pad docs do. Unchanged when `width` is None
+    or not wider."""
+    if width is None or width <= keyed.shape[0]:
+        return keyed
+    return torch.cat([keyed, keyed.new_full((width - keyed.shape[0],),
+                                            topk_ops.NEG_INF)])
+
+
 def _build_posting_space(plan: LoweredPlan, k: int):
-    """The posting-space program: fn(arrays, scalars, num_docs, fused=None)
-    → (sort values f64[k], second sort values f64[k] | None, doc ids
-    i32[k], hit scores f32[k], count i32, topk_safe f64, agg states), the
-    JAX program's result tree. When the plan takes the fused kernel
-    (`_takes_fused_kernel`), `fused` may hand in its (values, posting
-    indices), computed apart (a stacked group runs the step for all its
-    lanes in one `score_topk_lanes` launch); with None the program runs
-    `score_topk` itself, first."""
+    """The posting-space program: fn(arrays, scalars, num_docs, fused=None,
+    width=None) → (sort values f64[k], second sort values f64[k] | None,
+    doc ids i32[k], hit scores f32[k], count i32, topk_safe f64, agg
+    states), the JAX program's result tree. When the plan takes the fused
+    kernel (`_takes_fused_kernel`), `fused` may hand in its (values,
+    posting indices), computed apart (a stacked group runs the step for all
+    its lanes in one `score_topk_lanes` launch); with None the program runs
+    `score_topk` itself, first. `width` is a batch lane's posting length in
+    the JAX stacked program (`_widen`); the top-k selects over that many
+    lanes."""
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     padded = plan.num_docs_padded
     fused_step = _takes_fused_kernel(plan, k)
 
-    def fn(arrays, scalars, num_docs, fused=None):
+    def fn(arrays, scalars, num_docs, fused=None, width=None):
         ids = arrays[root.ids_slot]
         tfs = arrays[root.tfs_slot]
         dev = ids.device
@@ -582,7 +597,7 @@ def _build_posting_space(plan: LoweredPlan, k: int):
                     torch.zeros(0, dtype=torch.int32, device=dev),
                     torch.zeros(0, dtype=torch.float32, device=dev),
                     count, one, tuple(agg_out))
-        kk = min(k, num_postings)
+        kk = min(k, max(num_postings, width or 0))
         if fused_step:
             # fused scoring + top-k: the [P] scores never materialize; hit
             # scores come straight from the kernel's winners
@@ -623,7 +638,7 @@ def _build_posting_space(plan: LoweredPlan, k: int):
                                                           threshold)
         sort_vals2 = None
         if sort.by2 == "none":
-            sort_vals, pos = topk_ops.exact_topk(keyed, kk)
+            sort_vals, pos = topk_ops.exact_topk(_widen(keyed, width), kk)
         else:
             keyed2 = _keyed_for(sort.by2, sort.descending2, sort.values2_slot,
                                 sort.present2_slot, gathered, valid, scores,
@@ -631,7 +646,10 @@ def _build_posting_space(plan: LoweredPlan, k: int):
             if plan.threshold_slot >= 0:
                 keyed2 = mask_ops.propagate_dead_lanes(keyed, keyed2)
             sort_vals, sort_vals2, pos = topk_ops.exact_topk_2key(
-                keyed, keyed2, kk)
+                _widen(keyed, width), _widen(keyed2, width), kk)
+        if kk > num_postings:
+            # widened: a pad lane's hit is -inf, never decoded
+            pos = torch.clamp(pos, max=num_postings - 1)
         doc_ids = ids[pos]
         hit_scores = scores[pos]
         agg_out = _eval_aggs(aggs, gathered, scalars, valid)
@@ -797,19 +815,21 @@ def _node_evaluator(padded: int, device):
 
 def _build(plan: LoweredPlan, k: int, device):
     """The leaf program for `plan`: fn(arrays, scalars, num_docs,
-    fused=None) → (sort values f64[k], sort values 2 f64[k] | None, doc ids
-    i32[k], hit scores f32[k], count i32, topk_safe f64, agg states), the
-    JAX program's result tree. Posting-space eligible plans take
-    `_build_posting_space` (the only form that reads `fused`). The function
-    reads only what `plan.signature(k)` covers from `plan`, so plans of one
-    signature share it."""
+    fused=None, width=None) → (sort values f64[k], sort values 2 f64[k] |
+    None, doc ids i32[k], hit scores f32[k], count i32, topk_safe f64, agg
+    states), the JAX program's result tree. Posting-space eligible plans
+    take `_build_posting_space` (the only form that reads `fused`).
+    `width` (a multi-split batch lane's doc count in the JAX stacked
+    program, `_widen`) lets k exceed this split's padded doc count. The
+    function reads only what `plan.signature(k)` covers from `plan`, so
+    plans of one signature share it."""
     if _posting_space_eligible(plan):
         return _build_posting_space(plan, k)
     padded = plan.num_docs_padded
     root, sort, aggs = plan.root, plan.sort, plan.aggs
     eval_node = _node_evaluator(padded, device)
 
-    def fn(arrays, scalars, num_docs, fused=None):
+    def fn(arrays, scalars, num_docs, fused=None, width=None):
         # predicates read the raw (possibly packed-delta) arrays; value
         # consumers go through the rebasing view
         view = _RebaseView(arrays, scalars, plan.rebase)
@@ -849,10 +869,10 @@ def _build(plan: LoweredPlan, k: int, device):
                 keyed2 = mask_ops.propagate_dead_lanes(keyed, keyed2)
         sort_vals2 = None
         if keyed2 is None:
-            sort_vals, doc_ids = topk_ops.exact_topk(keyed, k)
+            sort_vals, doc_ids = topk_ops.exact_topk(_widen(keyed, width), k)
         else:
             sort_vals, sort_vals2, doc_ids = topk_ops.exact_topk_2key(
-                keyed, keyed2, k)
+                _widen(keyed, width), _widen(keyed2, width), k)
         hit_scores = scores[torch.clamp(doc_ids, 0, padded - 1)]
         agg_out = _eval_aggs(aggs, view, scalars, mask)
         return (sort_vals, sort_vals2, doc_ids.to(torch.int32), hit_scores,

@@ -30,6 +30,7 @@ alone, so a sloppy phrase there can reuse the exact phrase's postings).
 from __future__ import annotations
 
 import fnmatch
+import hashlib
 import re
 import threading
 import time
@@ -1473,9 +1474,18 @@ class Lowering:
                 out[valid] = lut[local[valid]]
                 return out
 
+            # the remapped column depends on the batch's whole dictionary:
+            # its key carries the dictionary's digest, so a resident copy
+            # staged for one split set never serves another
+            digests = self.batch.setdefault("terms_digests", {})
+            digest = digests.get(spec.field)
+            if digest is None:
+                digest = digests[spec.field] = hashlib.blake2b(
+                    repr(global_keys).encode(), digest_size=8).hexdigest()
             return BucketAggExec(
                 spec.name, "terms",
-                self.b.add_array(f"col.{spec.field}.ordinals_global", fetch_remapped),
+                self.b.add_array(f"col.{spec.field}.ordinals_global.{digest}",
+                                 fetch_remapped),
                 -1, max(cardinality, 1),
                 metrics=self._metric_tuple(spec.sub_metrics),
                 host_info=self._terms_host_info(spec, global_keys))

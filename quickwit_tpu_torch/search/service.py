@@ -17,15 +17,18 @@ budget and the query batcher — the roles of the reference's SearcherContext
 (`service.rs:405`) and SearchPermitProvider. One context serves one device:
 its resident store, budget and batcher hold only that device's tensors.
 
-Counterpart of the JAX package's `search/service.py`, per-split route only:
-every split group runs split by split, which is the JAX service's own route
-when `batch_size=1` or the Tier A/B caches apply. The fused multi-split
-batch and mesh route, leaf offload and `fetch_docs` come with later
-slices.
+Counterpart of the JAX package's `search/service.py`. A group of
+`batch_size` splits takes the batch route (parallel/fanout.py: one dispatch
+over the group's splits, the cross-split merge on the device, one
+readback) under the JAX service's conditions; every other group runs split
+by split. The batch stages each split through the per-split route's own
+warmup, so both routes share one resident copy of each split. The mesh
+route, leaf offload and `fetch_docs` come with later slices.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from collections import OrderedDict
@@ -41,13 +44,17 @@ from ..common.deadline import (
 from ..index.reader import SplitReader
 from ..models.doc_mapper import DocMapper
 from ..observability.metrics import (
-    SEARCH_DEADLINE_REMAINING, SEARCH_SHED_TOTAL,
+    RESIDENT_READBACKS_SHED, SEARCH_DEADLINE_REMAINING, SEARCH_SHED_TOTAL,
     SEARCH_SPLITS_DOWNGRADED_TOTAL, SEARCH_SPLITS_PRUNED_TOTAL,
 )
 from ..observability.profile import (
     QueryProfile, current_profile, profile_scope,
 )
 from ..observability.tracing import TRACER, RateLimitedLog
+from ..parallel.fanout import (
+    abandon_dispatch, build_batch, dispatch_batch, is_device_fault,
+    readback_batch, release_stack_pin, stage_device_inputs,
+)
 from ..query.ast import MatchAll
 from ..storage.base import StorageResolver
 from ..tenancy.context import TenantContext, current_tenant, tenant_scope
@@ -370,9 +377,7 @@ class SearchService:
                         error="deadline exceeded before split executed at leaf",
                         retryable=True))
                 if future is not None:
-                    # a prefetched group holds no admission (the per-split
-                    # route admits at execute time): its result is dropped
-                    future.result()
+                    self._discard_prepared(future.result())
                 break
             prepared = (future.result() if future is not None
                         else self._prepare_group(group, doc_mapper,
@@ -530,10 +535,57 @@ class SearchService:
                   "count_prepared": count_prepared,
                   "count_request": count_request}
         push_thr = (threshold.get() if prune_ctx.mode is not None else None)
-        return (self._prepare_per_split(run_group, doc_mapper, search_request,
+        # the batch route has no search_after pushdown or per-split terms
+        # truncation; the per-split route handles those (2-key sorts ride
+        # the batch through the lexicographic cross-split re-top-k)
+        if (len(run_group) > 1 and not search_request.search_after
+                and string_sort_of(search_request, doc_mapper) is None
+                and not self._split_caches_route_per_split(search_request)
+                and not any(key in json.dumps(search_request.aggs or {})
+                            for key in ("split_size", "shard_size",
+                                        "segment_size"))):
+            # batch lanes go in split_id order: the cross-split merge
+            # breaks sort-value ties by lane, and the collector's total
+            # order is (key desc, split_id asc, doc asc)
+            run_group = sorted(run_group, key=lambda s: s.split_id)
+            try:
+                readers = [self.context.reader(s) for s in run_group]
+                if prune_ctx.mode == "score":
+                    for reader, split in zip(readers, run_group):
+                        record_split_term_stats(
+                            self.context.score_bound_cache, split.split_id,
+                            reader, prune_ctx.terms)
+                # host only (storage IO and lowering): the batch stages in
+                # the execute stage, on the caller's stream
+                batch = build_batch(
+                    search_request, doc_mapper, readers,
+                    [s.split_id for s in run_group],
+                    absence_sink=self.context.predicate_cache
+                    .record_term_absent,
+                    sort_value_threshold=push_thr)
+                return ("batch", run_group, batch, extras)
+            except (OverloadShed, TenantRateLimited):
+                # whole-query backpressure, not a split failure: falling
+                # back per split would just shed again
+                raise
+            except Exception as exc:  # noqa: BLE001 - fall back per split
+                if is_device_fault(exc):
+                    raise
+                logger.debug("batch path failed (%s); searching per split",
+                             exc)
+        return ("per_split", run_group,
+                self._prepare_per_split(run_group, doc_mapper, search_request,
                                         prune_ctx=prune_ctx,
                                         sort_value_threshold=push_thr),
                 extras)
+
+    def _discard_prepared(self, prepared) -> None:
+        """A prefetched group dropped by the deadline returns its admission
+        pins. The port's batch route pins nothing before its execute stage
+        (it stages there), so this is a no-op unless a batch was staged."""
+        kind, _group, data, _extras = prepared
+        if kind == "batch":
+            release_stack_pin(data, self.context.hbm_budget)
 
     def _prepare_per_split(self, group, doc_mapper, search_request,
                            prune_ctx=None, sort_value_threshold=None):
@@ -598,6 +650,23 @@ class SearchService:
         return LeafSearchResponse(
             num_hits=count, num_attempted_splits=1, num_successful_splits=1,
             intermediate_aggs=states)
+
+    def _split_caches_route_per_split(self, request) -> bool:
+        """True when the Tier A/B caches could serve or warm this request.
+        Consults and fills are per-split operations; the batch route merges
+        its splits on the device, so a batched group can neither use a
+        cached mask nor attribute partials back to one split. Such groups
+        route per split instead, cheap since the resident column store
+        keeps warm splits on the device either way. Scoring sorts stay
+        batched (mask-ineligible: the default sort IS _score and the mask
+        carries no BM25 scores) except agg-only requests, where Tier B
+        applies regardless of sort. Both tiers off restores the batch
+        routing."""
+        sort_fields = [s.field for s in request.sort_fields] or ["_score"]
+        if self.context.mask_cache is not None and "_score" not in sort_fields:
+            return True
+        return (self.context.agg_cache is not None and bool(request.aggs)
+                and request.max_hits == 0 and request.start_offset == 0)
 
     def _consult_split_caches(self, request, split, reader):
         """Tier A/B lookups for one split, before lowering. Returns None
@@ -708,7 +777,7 @@ class SearchService:
                        collector, prune_ctx, threshold, prune_stats) -> None:
         """Stage 2 (caller's thread and stream): staging, program,
         readback and merge."""
-        data, extras = prepared
+        kind, group, data, extras = prepared
         for split in extras["skipped"]:
             # conclusively handled without execution: zero hits here can
             # reach the top-K (num_hits is a lower bound when
@@ -729,9 +798,67 @@ class SearchService:
                 extras["count_prepared"], doc_mapper,
                 extras["count_request"], collector,
                 prune_ctx=None, threshold=None, prune_stats=None)
+        if kind == "batch":
+            if self._execute_batch(data, search_request, collector):
+                return
+            # the batch could not run for a reason the JAX service also
+            # falls back on: search the group split by split
+            data = self._prepare_per_split(
+                group, doc_mapper, search_request, prune_ctx=prune_ctx,
+                sort_value_threshold=(threshold.get()
+                                      if prune_ctx.mode is not None
+                                      else None))
         self._execute_per_split(data, doc_mapper, search_request, collector,
                                 prune_ctx=prune_ctx, threshold=threshold,
                                 prune_stats=prune_stats)
+
+    def _execute_batch(self, batch, search_request, collector) -> bool:
+        """The batch route's execute stage: stage each split (pinned in the
+        budget), one dispatch, then the one readback merged into the
+        collector. Returns False when the group must run per split instead.
+        A device or kernel fault is raised, never answered per split. The
+        route fills no leaf-cache entry and no tier entry: its response
+        covers several splits."""
+        context = self.context
+        try:
+            # staging runs here, on the caller's current stream, the
+            # stream the dispatch runs on
+            stage_device_inputs(batch, context.device,
+                                budget=context.hbm_budget,
+                                store=context.resident_store)
+            # dispatch and readback are split so the deadline can shed
+            # BETWEEN them: the programs may run to completion on the
+            # device, but a query nobody waits for never pays the wait
+            dispatched = dispatch_batch(batch, search_request,
+                                        context.device)
+            deadline = current_deadline()
+            if deadline is not None and deadline.expired:
+                abandon_dispatch(dispatched)
+                RESIDENT_READBACKS_SHED.inc()
+                profile = current_profile()
+                if profile is not None:
+                    profile.mark_partial("shed: batch readback")
+                for split_id in batch.split_ids:
+                    if split_id:
+                        collector.failed_splits.append(SplitSearchError(
+                            split_id=split_id,
+                            error="deadline exceeded before readback was "
+                                  "awaited",
+                            retryable=True))
+                return True
+            collector.add_leaf_response(readback_batch(dispatched))
+            return True
+        except (OverloadShed, TenantRateLimited):
+            raise
+        except Exception as exc:  # noqa: BLE001 - fall back per split
+            if is_device_fault(exc):
+                raise
+            logger.debug("batch execute failed (%s); per split", exc)
+            return False
+        finally:
+            # the pins move to resident; the staged tensors die with the
+            # batch, after the stream's work
+            release_stack_pin(batch, context.hbm_budget)
 
     def _execute_per_split(self, data, doc_mapper, search_request, collector,
                            prune_ctx=None, threshold=None,
