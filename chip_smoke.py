@@ -192,7 +192,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             counters zeroed again; every comparison and timing launch is
             counted apart. Splits in RAM storage: 64 otel splits of 524,288
             docs (seeds 0..63: `bench.py`'s config 5, 33.5M docs) and 8
-            hdfs splits of 524,288 docs (seeds 100..107). Each batch on the
+            hdfs splits of 524,288 docs (seeds 100..107, with the
+            generator's doc store, which phase 12 fetches). Each batch on the
             card is one program with no solo `score_topk` launch and must
             equal the per-split route merged by the collector on the card
             (f64 sums to rtol 1e-12, all else exactly):
@@ -218,6 +219,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             p50/p90, profiler windows, bytes staged per warm call, the
             batch's device bytes, splits per second of device time), and
             `score_topk_lanes` at the flagship's 8 unequal lanes.
+12. root  : root search (`search/root.py`) over phase 11's splits, with the
+            counters zeroed again; every comparison and timing launch is
+            counted apart. A `FileBackedMetastore` over RAM storage holds
+            hdfs-logs (the 8 hdfs splits, `HDFS_MAPPER`), otel-traces (the
+            64 otel splits, `OTEL_BENCH_MAPPER`: BASELINE config 5 at
+            `bench.py`'s size) and otel-traces-head (the first 8 otel
+            splits), each split published with a `SplitMetadata` read from
+            its own columns (num_docs, time range, column bounds). One node
+            on the card (`SearcherContext(batch_size=8, device="cuda")`,
+            its leaf cache and Tiers A and B off, so that every call runs
+            its program and an agg-only request batches) behind a
+            `LocalSearchClient`; a second root over the same metastore and
+            bytes whose node is on the CPU. Each response must equal the
+            CPU root's (`to_dict()` minus `elapsed_time_micros`, with each
+            hit's split, doc, score and sort values; aggregation floats to
+            rtol 1e-12, everything else exactly):
+            - the flagship as the query string `severity_text:ERROR`,
+              top-10 by score, its date_histogram and terms, and the 10
+              documents fetched with severity_text snippets (one lane
+              launch: one batch of 8 splits);
+            - body_top10 as `body:<term>` with body snippets (the
+              generator stores no body, so they come back empty);
+            - c2 as an ES-DSL bool body, top-100 by timestamp desc, and its
+              page 2 through `search_after`, equal to hits 101-200;
+            - c5 over otel-traces (64 splits, max_hits=0: 8 batches in one
+              leaf request), equal after finalize to phase 11's batch of
+              64, and against the CPU root over otel-traces-head (the
+              CPU over all 64 splits would take minutes);
+            - a time range beyond every split: the metastore prunes them
+              all, 0 leaf calls, 0 launches, the aggregation skeleton;
+            - a two-node root (both nodes on the card) whose node-0 client
+              fails its first leaf call: one retry, a response equal to the
+              fault-free two-node root's;
+            - a cold node with a 20 ms budget: a timed-out partial response
+              and, once the abandoned dispatch ends, 0 bytes pinned.
+            Then warm p50/p90 in turns: the flagship through the root
+            beside the service's leaf call over the same 8 splits, and c5
+            through the root beside phase 11's batch; the root's phases
+            from a profiled call of each; a profiler window of 3 calls.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -2469,7 +2509,8 @@ def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
     hdfs_ids = [f"hdfs{i}" for i in range(hdfs_splits)]
     hdfs_bytes = 0
     for i, split_id in enumerate(hdfs_ids):
-        data = m.synthetic_hdfs_split(hdfs_docs, seed=FANOUT_HDFS_SEED + i)
+        data = m.synthetic_hdfs_split(hdfs_docs, seed=FANOUT_HDFS_SEED + i,
+                                      store_docs=True)
         hdfs_bytes += len(data)
         storage.put(f"{split_id}.split", data)
     del data
@@ -2722,7 +2763,387 @@ def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
     row, err = aside(lanes_kernel_row, torch, st, m.score_postings,
                      list(zip(batch_f.plans, lanes)), iters, flush, label,
                      at="fanout_flagship_8splits")
-    return {"launches": path, "row": row, "err": err}
+    return {"launches": path, "row": row, "err": err, "storage": storage,
+            "otel_ids": otel_ids, "hdfs_ids": hdfs_ids, "batch5": batch5,
+            "got5": got5}
+
+
+# --------------------------------------------------------------------------
+# phase 12: root search
+
+SPLITS_URI = "ram:///chip_fanout"      # phase 11's storage
+
+
+def split_metadata(m, reader, split_id, index_uid, mapper):
+    """A split's metastore record, read from its own columns: num_docs,
+    the time range of its footer and the [min, max] of every mapped
+    i64/u64/f64 fast column (what `SplitWriter.column_bounds` records)."""
+    FT = m.FieldType
+    n = reader.num_docs
+    bounds = {}
+    for fm in mapper.field_mappings:
+        if fm.fast and fm.type in (FT.I64, FT.U64, FT.F64):
+            values, present = reader.column_values(fm.name)
+            live = values[:n][present[:n] != 0]
+            if live.size:
+                cast = float if fm.type is FT.F64 else int
+                bounds[fm.name] = (cast(live.min()), cast(live.max()))
+    start, end = reader.footer.time_range or (None, None)
+    return m.SplitMetadata(
+        split_id=split_id, index_uid=index_uid, source_id="chip_smoke",
+        num_docs=n, footprint_bytes=reader.file_len,
+        time_range_start=start, time_range_end=end, column_bounds=bounds)
+
+
+def same_search(got, want, label, path="response") -> None:
+    """Two `SearchResponse.to_dict()` trees (minus elapsed time and
+    profile, plus each hit's split, doc, score and sort values): floats
+    under `aggregations` to rtol 1e-12, everything else exactly."""
+    import numpy as np
+
+    def tree(resp):
+        out = resp.to_dict()
+        out.pop("elapsed_time_micros")
+        out.pop("profile", None)
+        out["hit_keys"] = [[h.split_id, h.doc_id, h.score,
+                            list(h.sort_values)] for h in resp.hits]
+        return out
+
+    def walk(w, g, at):
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or w.keys() != g.keys():
+                raise AssertionError(f"{label} {at}: keys differ")
+            for k in w:
+                walk(w[k], g[k], f"{at}.{k}")
+        elif isinstance(w, (list, tuple)):
+            if len(w) != len(g):
+                raise AssertionError(f"{label} {at}: lengths differ")
+            for i, (a, b) in enumerate(zip(w, g)):
+                walk(a, b, f"{at}[{i}]")
+        elif isinstance(w, float) and ".aggregations" in at:
+            if not (isinstance(g, float) and (
+                    (np.isnan(w) and np.isnan(g))
+                    or np.isclose(g, w, rtol=1e-12, atol=0))):
+                raise AssertionError(f"{label} {at}: {w} vs {g}")
+        elif w != g or type(w) is not type(g):
+            raise AssertionError(f"{label} {at}: {w!r} vs {g!r}")
+
+    if isinstance(got, dict):
+        walk(want, got, path)
+    else:
+        walk(tree(want), tree(got), path)
+
+
+def phase_ms(profile: dict) -> dict:
+    """Milliseconds per phase name of a root profile (the embedded leaves
+    write into it), largest first."""
+    out: dict[str, float] = {}
+    for rec in profile["phases"]:
+        out[rec["name"]] = out.get(rec["name"], 0.0) + rec["duration_ms"]
+    return {k: round(v, 4) for k, v in sorted(out.items(),
+                                               key=lambda kv: -kv[1])}
+
+
+def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
+    """Phase 12: `RootSearcher.search` over a file-backed metastore of
+    phase 11's splits, through a node on the card, each response against
+    the same root over a CPU node; then the pruned, retried and timed-out
+    requests, and the timings. Returns the path's launches."""
+    import threading
+    from types import SimpleNamespace
+    storage = fanned["storage"]
+    hdfs_ids, otel_ids = fanned["hdfs_ids"], fanned["otel_ids"]
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def counter(name):
+        return getattr(m.metrics, name).get()
+
+    # the metastore: three indexes over phase 11's bytes
+    t0 = time.perf_counter()
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda _uri: storage)
+    metastore = m.FileBackedMetastore(
+        m.RamStorage(m.Uri.parse("ram:///chip_metastore")))
+    for index_id, mapper, ids in (
+            ("hdfs-logs", m.HDFS_MAPPER, hdfs_ids),
+            ("otel-traces", m.OTEL_BENCH_MAPPER, otel_ids),
+            ("otel-traces-head", m.OTEL_BENCH_MAPPER, otel_ids[:8])):
+        index_uid = f"{index_id}:01"
+        metastore.create_index(m.IndexMetadata(
+            index_uid=index_uid, index_config=m.IndexConfig(
+                index_id=index_id, index_uri=SPLITS_URI,
+                doc_mapper=mapper)))
+        records = [split_metadata(m, m.SplitReader(storage,
+                                                   f"{split_id}.split"),
+                                  split_id, index_uid, mapper)
+                   for split_id in ids]
+        metastore.stage_splits(index_uid, records)
+        metastore.publish_splits(index_uid, list(ids))
+    hdfs_md = metastore.list_splits(m.ListSplitsQuery(
+        index_uids=["hdfs-logs:01"]))
+    say(f"root metastore: indexes="
+        f"{[im.index_id for im in metastore.list_indexes()]} "
+        f"hdfs_split_0={json.dumps(hdfs_md[0].metadata.to_dict())} "
+        f"setup_s={time.perf_counter() - t0:.3f}")
+
+    class CountingClient:
+        """A node's client that counts leaf calls."""
+
+        def __init__(self, inner):
+            self.inner, self.leaf_calls = inner, 0
+
+        def leaf_search(self, request):
+            self.leaf_calls += 1
+            return self.inner.leaf_search(request)
+
+        def fetch_docs(self, request):
+            return self.inner.fetch_docs(request)
+
+    def node(device, node_id="node-0", **kw):
+        ctx = m.svc_mod.SearcherContext(
+            storage_resolver=resolver, device=device, batch_size=8,
+            leaf_cache_bytes=0, enable_agg_cache=False,
+            enable_mask_cache=False, **kw)
+        return m.svc_mod.SearchService(ctx, node_id=node_id), ctx
+
+    def root_over(services, wrap=None):
+        clients = {}
+        for node_id, svc in services.items():
+            client = m.svc_mod.LocalSearchClient(svc)
+            clients[node_id] = wrap(node_id, client) if wrap else client
+        return m.RootSearcher(metastore, clients)
+
+    gpu_svc, gpu_ctx = node(dev)
+    gpu_client = CountingClient(m.svc_mod.LocalSearchClient(gpu_svc))
+    gpu_root = m.RootSearcher(metastore, {"node-0": gpu_client})
+    cpu_svc, _ = node("cpu")
+    cpu_root = root_over({"node-0": cpu_svc})
+
+    t0_us = 1_600_000_000 * 1_000_000
+    day_us = 86400 * 1_000_000
+    flagship_aggs = reqs["flagship"].aggs
+    c2_body = {"bool": {
+        "must": [{"term": {"severity_text": "ERROR"}}],
+        "should": [{"term": {"body": m.body_term(3)}},
+                   {"term": {"body": m.body_term(7)}}],
+        "filter": [{"range": {"timestamp": {"gte": t0_us + day_us,
+                                            "lt": t0_us + 4 * day_us}}}]}}
+    c5_aggs = {"latency": {"percentiles": {"field": "span_duration_micros",
+                                           "percents": [50, 95, 99]}}}
+
+    def request(index, query, **kw):
+        ast = (m.es_query_to_ast(query) if isinstance(query, dict)
+               else m.parse_query_string(query, ["body"]))
+        return m.SearchRequest(index_ids=[index], query_ast=ast, **kw)
+
+    by_ts = (m.SortField("timestamp", "desc"),)
+    requests = {
+        "flagship": request("hdfs-logs", "severity_text:ERROR", max_hits=10,
+                            aggs=flagship_aggs,
+                            snippet_fields=("severity_text",)),
+        "body_top10": request("hdfs-logs", f"body:{m.body_term(3)}",
+                              max_hits=10, snippet_fields=("body",)),
+        "c2_es_dsl_by_ts": request("hdfs-logs", c2_body, max_hits=100,
+                                   sort_fields=by_ts),
+        "c5_otel_64splits": request("otel-traces", "*", max_hits=0,
+                                    aggs=c5_aggs),
+        "c5_otel_head_8splits": request("otel-traces-head", "*",
+                                        max_hits=0, aggs=c5_aggs),
+        "pruned_time_range": request(
+            "hdfs-logs", "severity_text:ERROR", max_hits=10,
+            aggs=flagship_aggs, start_timestamp=t0_us + 365 * day_us),
+    }
+
+    # 1-5 on the card, the counters zeroed just before
+    st.score_topk.launches = st.score_topk_lanes.launches = 0
+    out, seen = {}, {}
+    for name, req in requests.items():
+        k0, l0 = counts()
+        calls0 = gpu_client.leaf_calls
+        m.flight.FLIGHT.begin_run()
+        t0 = time.perf_counter()
+        out[name] = gpu_root.search(req)
+        wall = (time.perf_counter() - t0) * 1e3
+        batches = sum(1 for e in m.flight.FLIGHT.events()
+                      if e["kind"] == "dispatch.launch"
+                      and e["attrs"].get("path") == "batch")
+        seen[name] = {"score_topk": st.score_topk.launches - k0,
+                      "score_topk_lanes": st.score_topk_lanes.launches - l0,
+                      "leaf_calls": gpu_client.leaf_calls - calls0,
+                      "batches": batches, "cold_wall_ms": round(wall, 3)}
+    last = out["c2_es_dsl_by_ts"].hits[-1]
+    page2 = dataclasses.replace(
+        requests["c2_es_dsl_by_ts"],
+        search_after=[last.sort_values[0], last.split_id, last.doc_id])
+    k0, l0 = counts()
+    out["c2_page2"] = gpu_root.search(page2)
+    seen["c2_page2"] = {"score_topk": st.score_topk.launches - k0,
+                        "score_topk_lanes": st.score_topk_lanes.launches
+                        - l0}
+
+    # each against the CPU root (not over all 64 otel splits)
+    for name, resp in out.items():
+        if name == "c5_otel_64splits":
+            continue
+        want = aside(cpu_root.search, page2 if name == "c2_page2"
+                     else requests[name])
+        same_search(resp, want, f"root {name}")
+        if resp.errors:
+            raise AssertionError(f"root {name}: {resp.errors}")
+    top200 = aside(gpu_root.search, dataclasses.replace(
+        requests["c2_es_dsl_by_ts"], max_hits=200))
+    if ([(h.split_id, h.doc_id) for h in out["c2_page2"].hits]
+            != [(h.split_id, h.doc_id) for h in top200.hits[100:]]):
+        raise AssertionError("root c2 page 2 is not hits 101-200")
+    collector = m.IncrementalCollector(0, 0)
+    collector.add_leaf_response(fanned["got5"])
+    same_search(out["c5_otel_64splits"].aggregations,
+                m.finalize_aggregations(collector.aggregation_states()),
+                "root c5 over 64 splits vs phase 11's batch",
+                path="response.aggregations")
+    flagship = out["flagship"]
+    checks = {
+        "flagship": (flagship.num_hits > 0 and len(flagship.hits) == 10
+                     and all(h.doc and h.snippets for h in flagship.hits)
+                     and seen["flagship"]["score_topk_lanes"] == 1
+                     and seen["flagship"]["batches"] == 1),
+        "body_top10": (len(out["body_top10"].hits) == 10
+                       and seen["body_top10"]["score_topk_lanes"] == 1),
+        "c2": (len(out["c2_es_dsl_by_ts"].hits) == 100
+               and len(out["c2_page2"].hits) == 100),
+        "c5": (out["c5_otel_64splits"].num_hits == len(otel_ids)
+               * FANOUT_OTEL_DOCS and seen["c5_otel_64splits"]["batches"]
+               == -(-len(otel_ids) // 8)
+               and seen["c5_otel_64splits"]["leaf_calls"] == 1),
+        "pruned": (seen["pruned_time_range"]["leaf_calls"] == 0
+                   and out["pruned_time_range"].num_attempted_splits == 0
+                   and set(out["pruned_time_range"].aggregations)
+                   == set(flagship_aggs)),
+    }
+    for name, resp in out.items():
+        equal = ("phase_11_batch" if name == "c5_otel_64splits"
+                 else "cpu_root")
+        say(f"root {name}: num_hits={resp.num_hits} hits={len(resp.hits)} "
+            f"splits={resp.num_attempted_splits} "
+            f"{json.dumps(seen[name])} equal_to_{equal}=True")
+    say("root flagship hits: " + json.dumps(
+        [[h.split_id, h.doc_id, h.score, h.doc, h.snippets]
+         for h in flagship.hits[:3]]))
+    say("root pruned aggregations: "
+        + json.dumps(out["pruned_time_range"].aggregations))
+    say("root c5 over 64 splits: equal_to_phase_11_batch=True "
+        + json.dumps(out["c5_otel_64splits"].aggregations))
+    if not all(checks.values()):
+        raise AssertionError(f"root checks: {checks}")
+
+    # 6. a retry: node-0's first leaf call fails
+    retry_nodes = {f"node-{i}": node(dev, f"node-{i}")[0] for i in range(2)}
+    injector = m.faults.FaultInjector(seed=5, rules=[m.faults.FaultRule(
+        "client.leaf_search@node-0", "error", max_fires=1)])
+    faulty = root_over(retry_nodes, wrap=lambda node_id, client:
+                       m.faults.FaultyClient(client, injector, node_id))
+    r0 = counter("SEARCH_LEAF_RETRIES_TOTAL")
+    k0, l0 = counts()
+    retried = faulty.search(requests["flagship"])
+    seen["retry"] = {"score_topk": st.score_topk.launches - k0,
+                     "score_topk_lanes": st.score_topk_lanes.launches - l0,
+                     "retries": counter("SEARCH_LEAF_RETRIES_TOTAL") - r0}
+    clean_nodes = {f"node-{i}": node(dev, f"node-{i}")[0] for i in range(2)}
+    clean = aside(root_over(clean_nodes).search, requests["flagship"])
+    same_search(retried, clean, "root retry vs fault-free")
+    same_search(retried, flagship, "root retry vs one node")
+    say(f"root retry: {json.dumps(seen['retry'])} fired="
+        f"{json.dumps(injector.schedule())} failed_splits="
+        f"{len(retried.failed_splits)} equal_to_fault_free=True")
+    if seen["retry"]["retries"] != 1 or retried.failed_splits:
+        raise AssertionError(f"root retry: {seen['retry']}")
+    del retry_nodes, clean_nodes, faulty
+
+    # 7. a budget too small for a cold node
+    cold_svc, cold_ctx = node(dev)
+    cold_root = root_over({"node-0": cold_svc})
+    k0, l0 = counts()
+    timed_out = cold_root.search(dataclasses.replace(
+        requests["c2_es_dsl_by_ts"], timeout_millis=20))
+    end = time.monotonic() + 60.0
+    for thread in threading.enumerate():
+        if thread.name.startswith("root-fanout-"):
+            thread.join(max(end - time.monotonic(), 0.0))
+    pinned = cold_ctx.hbm_budget.stats()["pinned"]
+    seen["timeout"] = {"score_topk": st.score_topk.launches - k0,
+                       "score_topk_lanes": st.score_topk_lanes.launches - l0}
+    say(f"root timeout: timed_out={timed_out.timed_out} failed_splits="
+        f"{len(timed_out.failed_splits)} errors="
+        f"{sorted({e.error for e in timed_out.failed_splits})} "
+        f"pinned_after={pinned} {json.dumps(seen['timeout'])}")
+    if not timed_out.timed_out or pinned != 0:
+        raise AssertionError("root timeout")
+    del cold_root, cold_svc, cold_ctx
+
+    path = {"score_topk": st.score_topk.launches,
+            "score_topk_lanes": st.score_topk_lanes.launches}
+    say(f"root launches: {json.dumps(path)}")
+    if path["score_topk_lanes"] < 1 or any(
+            seen[name]["score_topk"] + seen[name]["score_topk_lanes"]
+            for name in ("c2_es_dsl_by_ts", "c2_page2", "c5_otel_64splits",
+                         "pruned_time_range")):
+        raise AssertionError(f"root launches: {path} {seen}")
+
+    # timing, in turns
+    os.makedirs(os.path.join(here, "chip_traces"), exist_ok=True)
+    leaf_request = m.models.LeafSearchRequest(
+        search_request=requests["flagship"], index_uid="hdfs-logs:01",
+        doc_mapping=m.HDFS_MAPPER.to_dict(),
+        splits=[m.models.SplitIdAndFooter(split_id, SPLITS_URI,
+                                          num_docs=FANOUT_HDFS_DOCS)
+                for split_id in hdfs_ids])
+    batch5 = fanned["batch5"]
+    pairs = (
+        ("flagship", lambda: gpu_root.search(requests["flagship"]),
+         "service_leaf_8splits", lambda: gpu_svc.leaf_search(leaf_request)),
+        ("c5_otel_64splits",
+         lambda: gpu_root.search(requests["c5_otel_64splits"]),
+         "phase11_batch_64splits",
+         lambda: m.fanout.execute_batch(batch5, requests["c5_otel_64splits"],
+                                        device=dev)),
+    )
+    for name, root_call, other_name, other_call in pairs:
+        aside(root_call)
+        aside(other_call)
+        walls, other_walls = [], []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            aside(root_call)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            aside(other_call)
+            torch.cuda.synchronize()
+            walls.append((t1 - t0) * 1e3)
+            other_walls.append((time.perf_counter() - t1) * 1e3)
+        profiled = aside(gpu_root.search, dataclasses.replace(
+            requests[name], profile=True))
+        prof = aside(device_profile, torch, root_call, 3, os.path.join(
+            here, "chip_traces", f"trace_root_{name}.json"))
+        say(f"[{label}] root timing {name}: root_p50_ms={pct(walls, 0.5):.4f}"
+            f" root_p90_ms={pct(walls, 0.9):.4f} {other_name}_p50_ms="
+            f"{pct(other_walls, 0.5):.4f} {other_name}_p90_ms="
+            f"{pct(other_walls, 0.9):.4f} iters={iters}")
+        say(f"[{label}] root phases {name} (one profiled call, ms): "
+            + json.dumps(phase_ms(profiled.profile)) + " counters="
+            + json.dumps(profiled.profile["counters"]))
+        say(f"[{label}] profile root {name}: {prof}")
+    say(f"root node budget: {json.dumps(gpu_ctx.hbm_budget.stats())}")
+    return {"launches": path}
 
 
 def main(argv=None) -> int:
@@ -3032,7 +3453,41 @@ def main(argv=None) -> int:
             score_postings=score_postings),
         dev, args.iters, label, here, flush, {**requests, **doc_reqs})
     del flush_buf
+    fanout_launches, fanout_row, fanout_err = (
+        fanned["launches"], fanned["row"], fanned["err"])
     say(f"fanout phase_s={time.perf_counter() - t0:.3f}")
+
+    # 12. root search over phase 11's splits, with the counters zeroed
+    # again --------------------------------------------------------------
+    t0 = time.perf_counter()
+    from quickwit_tpu_torch.common import faults
+    from quickwit_tpu_torch.metastore import (
+        FileBackedMetastore, ListSplitsQuery)
+    from quickwit_tpu_torch.models.index_metadata import (
+        IndexConfig, IndexMetadata)
+    from quickwit_tpu_torch.models.split_metadata import SplitMetadata
+    from quickwit_tpu_torch.query import parse_query_string
+    from quickwit_tpu_torch.query.es_dsl import es_query_to_ast
+    from quickwit_tpu_torch.search.root import RootSearcher
+    rooted = check_root(
+        torch, st, SimpleNamespace(
+            metrics=metrics, flight=flight, faults=faults, fanout=fanout,
+            svc_mod=svc_mod, models=search_models, Protocol=Protocol,
+            StorageResolver=StorageResolver, RamStorage=RamStorage, Uri=Uri,
+            SplitReader=SplitReader, FieldType=FieldType,
+            HDFS_MAPPER=HDFS_MAPPER, OTEL_BENCH_MAPPER=OTEL_BENCH_MAPPER,
+            FileBackedMetastore=FileBackedMetastore,
+            ListSplitsQuery=ListSplitsQuery, IndexConfig=IndexConfig,
+            IndexMetadata=IndexMetadata, SplitMetadata=SplitMetadata,
+            parse_query_string=parse_query_string,
+            es_query_to_ast=es_query_to_ast, RootSearcher=RootSearcher,
+            SearchRequest=SearchRequest, SortField=SortField,
+            IncrementalCollector=IncrementalCollector,
+            finalize_aggregations=finalize_aggregations,
+            body_term=body_term),
+        dev, args.iters, label, here, {**requests, **doc_reqs}, fanned)
+    del fanned
+    say(f"root phase_s={time.perf_counter() - t0:.3f}")
 
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
@@ -3043,14 +3498,16 @@ def main(argv=None) -> int:
         # flagship_bucket_metrics calls of the aggregation phase, the
         # three c4 calls of the phrase phase, the service phase's
         # flagship calls before its timing (one per split of each call
-        # that runs a program) and the chunked phase's scans before its
-        # timing (one per posting chunk of a score-sorted scan)
+        # that runs a program), the chunked phase's scans before its
+        # timing (one per posting chunk of a score-sorted scan) and the
+        # root phase's one-split nodes (none: its nodes batch)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
                      + chunked["launches"]
                      + stacking["launches"]["score_topk"]
-                     + fanned["launches"]["score_topk"]),
+                     + fanout_launches["score_topk"]
+                     + rooted["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3063,15 +3520,17 @@ def main(argv=None) -> int:
         "source": "quickwit_tpu_torch/csrc/score_topk.cu",
         "replaces": "quickwit_tpu/ops/pallas/score_topk.py:59",
         # the stacking phase's path (the fused groups, the convoy, one per
-        # chunk of the chunked groups and the service's group) and the
-        # fan-out's (one per batch of at most 16 splits)
+        # chunk of the chunked groups and the service's group), the
+        # fan-out's (one per batch of at most 16 splits) and the root's
+        # (one per scored batch of a node's leaf request)
         "launches": (stacking["launches"]["score_topk_lanes"]
-                     + fanned["launches"]["score_topk_lanes"]),
-        "max_abs_err": max(lanes_err, stacking["err"], fanned["err"]),
+                     + fanout_launches["score_topk_lanes"]
+                     + rooted["launches"]["score_topk_lanes"]),
+        "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")},
-        "shapes": [stacking["row"], fanned["row"]],
+        "shapes": [stacking["row"], fanout_row],
     }]
     say(label)
     say(json.dumps({"kernels": kernels}))

@@ -1,13 +1,13 @@
 """Seeded, deterministic fault injection for the search path.
 
 Role of chaos harnesses around the reference engine (S3 tail latency, node
-loss, slow peers): every robustness claim in `search/service.py` is only as
-good as the failures it has actually been driven through. `FaultInjector`
-perturbs named operations — storage reads, the cache tiers' corruption and
-eviction points, resident-column eviction — with latency spikes, typed
-errors, and bounded hangs, from a plan keyed by `(seed, operation,
-occurrence)`. The metastore and leaf-client wrappers come with the
-modules they wrap.
+loss, slow peers): every robustness claim in `search/root.py` /
+`search/service.py` is only as good as the failures it has actually been
+driven through. `FaultInjector` perturbs named operations — storage reads,
+the root's metastore reads and leaf-search RPCs, the cache tiers'
+corruption and eviction points, resident-column eviction — with latency
+spikes, typed errors, and bounded hangs, from a plan keyed by `(seed,
+operation, occurrence)`.
 
 Determinism contract: the decision for the Nth occurrence of operation `op`
 is a pure function of `(seed, op, N)` (derived via blake2b, NOT the salted
@@ -263,6 +263,69 @@ class FaultyStorageResolver:
     def resolve(self, uri) -> Storage:
         return FaultyStorage(self._inner.resolve(uri), self._injector,
                              op_prefix=self._op_prefix)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class FaultyMetastore:
+    """Metastore wrapper perturbing the root's plan-time reads
+    (``metastore.list_splits``, ``metastore.index_metadata``).
+
+    Error-kind faults surface as `MetastoreError` (kind="internal") — the
+    typed failure the root's planning path owns; latency/hang faults model a
+    slow metastore backend, which the root must absorb into its deadline and
+    still answer with a typed partial response. Mutations pass through
+    unperturbed (a faulty publish would corrupt fixture setup)."""
+
+    def __init__(self, inner, injector: FaultInjector,
+                 op_prefix: str = "metastore"):
+        self._inner = inner
+        self._injector = injector
+        self._op_prefix = op_prefix
+
+    def _perturb(self, method: str) -> None:
+        from ..metastore.base import MetastoreError
+        try:
+            self._injector.perturb(f"{self._op_prefix}.{method}")
+        except InjectedFault as exc:
+            raise MetastoreError(str(exc), kind="internal") from exc
+
+    def list_splits(self, query):
+        self._perturb("list_splits")
+        return self._inner.list_splits(query)
+
+    def index_metadata(self, index_id: str):
+        self._perturb("index_metadata")
+        return self._inner.index_metadata(index_id)
+
+    def list_indexes(self):
+        self._perturb("list_indexes")
+        return self._inner.list_indexes()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class FaultyClient:
+    """Leaf-search client wrapper perturbing RPCs to one node.
+
+    Operations are namespaced per node (``client.leaf_search@node-1``) so a
+    rule can fail one replica while its peers stay healthy — the shape of
+    real node loss."""
+
+    def __init__(self, inner, injector: FaultInjector, node_id: str):
+        self._inner = inner
+        self._injector = injector
+        self.node_id = node_id
+
+    def leaf_search(self, request):
+        self._injector.perturb(f"client.leaf_search@{self.node_id}")
+        return self._inner.leaf_search(request)
+
+    def fetch_docs(self, request):
+        self._injector.perturb(f"client.fetch_docs@{self.node_id}")
+        return self._inner.fetch_docs(request)
 
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -18,6 +18,7 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 
+from ..observability.profile import current_profile
 from ..storage.base import Storage
 from ..storage.cache import ByteRangeCache
 from .format import DEFAULT_FOOTER_HINT, ArrayMeta, SplitFooter, read_footer
@@ -138,6 +139,13 @@ class SplitReader:
             return cached
         data = self.storage.get_slice(self.path, start, end)
         self.cache.put(self.path, start, data)
+        # per-query storage attribution: every split read (footer,
+        # postings, columns) funnels through here on a byte-range-cache
+        # miss; no-op (one ContextVar get) when no profile is bound
+        profile = current_profile()
+        if profile is not None:
+            profile.add("storage_read_bytes", len(data))
+            profile.add("storage_reads", 1)
         return data
 
     def _array_meta(self, name: str) -> ArrayMeta:

@@ -3,12 +3,13 @@
 Role of the reference's `quickwit-metrics` macro registry
 (`quickwit-metrics/src/lib.rs:44-343`): lazily-registered counters, gauges
 and histograms with labels, exposed in Prometheus text format. The port
-registers what its modules read: the leaf and node search service, HBM
-admission and the resident column store, the three cache tiers, the
-chunked scan and query cancellation, the query batcher and stacking,
-tenancy, fault injection and the flight recorder (and, in their own
-modules, the split cache's counters). Other subsystems' metrics come with
-them.
+registers what its modules read: the root searcher (timeouts, retries,
+profiled queries, the slow-query log and the SLO tracker), the leaf and
+node search service, HBM admission and the resident column store, the
+three cache tiers, the chunked scan and query cancellation, the query
+batcher and stacking, tenancy, fault injection and the flight recorder
+(and, in their own modules, the split cache's counters). Other subsystems'
+metrics come with them.
 """
 
 from __future__ import annotations
@@ -202,6 +203,17 @@ SEARCH_DEADLINE_REMAINING = METRICS.histogram(
 SEARCH_SHED_TOTAL = METRICS.counter(
     "qw_search_shed_total",
     "Operations shed because the query deadline expired before they ran")
+SEARCH_TIMED_OUT_TOTAL = METRICS.counter(
+    "qw_search_timed_out_total",
+    "Root searches that returned a timed_out partial response")
+SEARCH_LEAF_RETRIES_TOTAL = METRICS.counter(
+    "qw_search_leaf_retries_total",
+    "Leaf requests retried on another node after a failure")
+# Phase-2 doc fetches retried once on the next replica (root.py
+# _fetch_docs_phase); the leaf retry budget above covers phase 1 only.
+SEARCH_FETCH_DOCS_RETRIES_TOTAL = METRICS.counter(
+    "qw_search_fetch_docs_retries_total",
+    "Per-split doc fetches retried on another replica after a failure")
 
 # --- dynamic top-K split pruning (search/pruning.py) ------------------------
 SEARCH_SPLITS_PRUNED_TOTAL = METRICS.counter(
@@ -218,6 +230,12 @@ SEARCH_KERNEL_THRESHOLD_TOTAL = METRICS.counter(
 SEARCH_PHASE_SECONDS = METRICS.histogram(
     "qw_search_phase_seconds",
     "Wall time spent per query-execution phase (profile waterfall)")
+SEARCH_PROFILED_QUERIES_TOTAL = METRICS.counter(
+    "qw_search_profiled_queries_total",
+    "Root searches that ran with an execution profile attached")
+SEARCH_SLOWLOG_RECORDED_TOTAL = METRICS.counter(
+    "qw_search_slowlog_recorded_total",
+    "Queries captured into the slow-query ring buffer")
 
 # --- multi-tenant workload isolation (tenancy/) -----------------------------
 # Tenant labels pass through TenancyRegistry.metric_label, which hashes long
@@ -416,3 +434,18 @@ FLIGHT_THREADS = METRICS.gauge(
 FLIGHT_EXPORTS_TOTAL = METRICS.counter(
     "qw_flight_exports_total",
     "Chrome trace-event exports served")
+
+# --- per-tenant SLO burn accounting (observability/slo.py) ------------------
+# Per-priority-class latency objectives: every root query completion is
+# judged against its class objective; the burn rate is the windowed breach
+# fraction over the class error budget (burn > 1.0 means the budget is
+# being spent faster than the objective allows).
+SLO_QUERIES_TOTAL = METRICS.counter(
+    "qw_slo_queries_total",
+    "Root queries judged against their class SLO, by verdict (ok|breach)")
+SLO_BURN_RATE = METRICS.gauge(
+    "qw_slo_burn_rate",
+    "Windowed SLO burn rate per priority class (breach rate over budget)")
+SLO_OBJECTIVE_LATENCY_MS = METRICS.gauge(
+    "qw_slo_objective_latency_ms",
+    "Configured per-priority-class latency objective (milliseconds)")

@@ -48,6 +48,7 @@ correctly rounded quotient.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace as dc_replace
 from typing import Any
 
@@ -56,6 +57,7 @@ import torch
 
 from ..index.format import ZONEMAP_BLOCK
 from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
+from ..observability.profile import PHASE_EXECUTE, current_profile
 from ..ops import aggs as agg_ops
 from ..ops import masks as mask_ops
 from ..ops import topk as topk_ops
@@ -965,9 +967,25 @@ def _result_dict(host: np.ndarray, spec) -> dict[str, Any]:
     }
 
 
+def _execute_phase(stage: str):
+    """The profile's execute phase for one stage of a dispatch (the JAX
+    executor's names: `dispatch`, `dispatch_multi`, `dispatch_stacked`,
+    `readback`); a no-op context when no profile is bound. The JAX
+    executor names a dispatch that traced and compiled its program
+    `compile`; the port compiles nothing at query time, so every dispatch
+    is `execute`, as a warm JAX dispatch is."""
+    profile = current_profile()
+    if profile is None:
+        return contextlib.nullcontext()
+    return profile.phase(PHASE_EXECUTE, stage=stage)
+
+
 def readback_plan_result(packed: torch.Tensor, spec) -> dict[str, Any]:
-    """ONE device→host copy for the entire result tree, unpacked by spec."""
-    return _result_dict(packed.cpu().numpy(), spec)
+    """ONE device→host copy for the entire result tree, unpacked by spec;
+    the blocking copy absorbs the device's execution time."""
+    with _execute_phase("readback"):
+        host = packed.cpu().numpy()
+    return _result_dict(host, spec)
 
 
 def _on_device(device, device_arrays: list, caller: str) -> torch.device:
@@ -987,8 +1005,9 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
     dev = _on_device(device, device_arrays, "execute_plan")
     k = max(0, min(k, plan.num_docs_padded))
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
-    packed, spec = _get_packed_executor(plan, k, dev)(
-        list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
+    with _execute_phase("dispatch"):
+        packed, spec = _get_packed_executor(plan, k, dev)(
+            list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
     return readback_plan_result(packed, spec)
 
 
@@ -1147,9 +1166,11 @@ def _dispatch_lanes(base: LoweredPlan, k: int, fn, lanes: list, batch: int,
 
 
 def _readback_lanes(dispatched: LaneDispatch) -> list:
-    if dispatched.event is not None:
-        dispatched.event.synchronize()
-    host = dispatched.host.numpy() if dispatched.host is not None else None
+    with _execute_phase("readback"):
+        if dispatched.event is not None:
+            dispatched.event.synchronize()
+        host = (dispatched.host.numpy() if dispatched.host is not None
+                else None)
     return [_result_dict(host[q], dispatched.spec) if ok else None
             for q, ok in enumerate(dispatched.valid)]
 
@@ -1169,8 +1190,9 @@ def dispatch_plan_multi(plan: LoweredPlan, k: int, device_arrays: list,
                   plan, k, dev)
     arrays = list(device_arrays)
     lanes = [(arrays, tuple(s), int(plan.num_docs)) for s in scalar_sets]
-    return _dispatch_lanes(plan, k, fn, lanes + [None] * (bucket - batch),
-                           batch, dev)
+    with _execute_phase("dispatch_multi"):
+        return _dispatch_lanes(plan, k, fn,
+                               lanes + [None] * (bucket - batch), batch, dev)
 
 
 def readback_plan_multi(dispatched: LaneDispatch) -> list[dict[str, Any]]:
@@ -1214,7 +1236,8 @@ def dispatch_plan_stacked(plans, k: int, arrays_list, valid=None,
                 arrays[slot] = donor[slot]
             lanes[q] = (arrays, tuple(plans[q].scalars),
                         int(plans[q].num_docs))
-    return _dispatch_lanes(base, k, fn, lanes, batch, dev)
+    with _execute_phase("dispatch_stacked"):
+        return _dispatch_lanes(base, k, fn, lanes, batch, dev)
 
 
 def readback_plan_stacked(dispatched: LaneDispatch) -> list:

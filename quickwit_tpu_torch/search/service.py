@@ -22,8 +22,11 @@ Counterpart of the JAX package's `search/service.py`. A group of
 over the group's splits, the cross-split merge on the device, one
 readback) under the JAX service's conditions; every other group runs split
 by split. The batch stages each split through the per-split route's own
-warmup, so both routes share one resident copy of each split. The mesh
-route, leaf offload and `fetch_docs` come with later slices.
+warmup, so both routes share one resident copy of each split.
+`fetch_docs` reads the hits' documents (and their snippets) on the host for
+the root's second phase; `LocalSearchClient` is the in-process transport
+the root (search/root.py) calls. The mesh route and leaf offload come with
+later slices.
 """
 
 from __future__ import annotations
@@ -71,8 +74,8 @@ from .leaf import (execute_prepared_split, prepare_plan_only,
                    warmup_device_arrays)
 from .mask_cache import PredicateMaskCache, packed_mask_nbytes
 from .models import (
-    LeafSearchRequest, LeafSearchResponse, SearchRequest, SplitIdAndFooter,
-    SplitSearchError, string_sort_of,
+    FetchDocsRequest, LeafSearchRequest, LeafSearchResponse, SearchRequest,
+    SplitIdAndFooter, SplitSearchError, string_sort_of,
 )
 from .predicate_cache import PredicateCache, required_terms
 from .pruning import (
@@ -80,6 +83,7 @@ from .pruning import (
     pruning_context, record_split_term_stats, split_best_internal_key,
 )
 from .residency import ResidentColumnStore
+from .snippets import generate_snippets
 
 logger = logging.getLogger(__name__)
 
@@ -987,3 +991,30 @@ class SearchService:
         if sort.order == "desc":
             return sorted(splits, key=end_key, reverse=True)
         return sorted(splits, key=start_key)
+
+    # ------------------------------------------------------------------
+    def fetch_docs(self, request: FetchDocsRequest) -> list[dict[str, Any]]:
+        """The hits' documents from the split's doc store (host work: zlib
+        blocks read through the reader's byte-range cache), with snippets
+        when the request names snippet fields."""
+        reader = self.context.reader(request.split)
+        docs = reader.fetch_docs(request.doc_ids)
+        if request.snippet_fields and request.query_ast is not None:
+            for doc in docs:
+                doc["_snippets"] = generate_snippets(
+                    doc, request.snippet_fields, request.query_ast)
+        return docs
+
+
+class LocalSearchClient:
+    """In-process transport to a SearchService (the tests' and single-node
+    deployments' client; an HTTP client would have the same surface)."""
+
+    def __init__(self, service: SearchService):
+        self.service = service
+
+    def leaf_search(self, request: LeafSearchRequest) -> LeafSearchResponse:
+        return self.service.leaf_search(request)
+
+    def fetch_docs(self, request: FetchDocsRequest) -> list[dict[str, Any]]:
+        return self.service.fetch_docs(request)
