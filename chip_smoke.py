@@ -258,11 +258,51 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             beside the service's leaf call over the same 8 splits, and c5
             through the root beside phase 11's batch; the root's phases
             from a profiled call of each; a profiler window of 3 calls.
+13. write : the node's write flow (`ingest/`, `indexing/`,
+            `index/merge_arrays.py`, `compaction/`, `janitor/`), with the
+            counters zeroed again; every comparison and timing launch is
+            counted apart. One index over `HDFS_MAPPER` in a
+            `FileBackedMetastore` and split files in a temporary directory
+            outside the checkout, an `Ingester` with fsync on, an
+            `IngestRouter` over one shard, a split target of 131,072 docs
+            and a `stable_log` policy merging 4 splits:
+            - ingest: 524,288 hdfs-logs docs made from
+              `--seed` in requests of 4,096 (the last request alone
+              carries tenant 10);
+            - index: one `IngestSource` pipeline pass (`Node.
+              run_ingest_pass`): 4 published splits of 131,072 docs, the
+              WAL truncated behind the published checkpoint;
+            - search A through a root over a node on the card, each
+              response equal to a root over a CPU node on the same
+              metastore: the flagship (term top-10 by BM25 with its
+              aggregations), c2 as ES-DSL (bool + range top-100), c3 (the
+              aggregations alone), tenant 10's count and every hit of a
+              rare body term by timestamp; 10 warm flagship calls;
+            - delete: a delete task on tenant 10 and `run_delete_planner`
+              with its count probes on the card: exactly 1 split
+              rewritten and 3 fast-forwarded (a fault on the card
+              propagates from the probe; any other failed probe reads as
+              a match and would show as a rewrite); then search A, with
+              tenant 10's count 0;
+            - merge: one compaction pass (`CompactionPlanner`,
+              `CompactorSupervisor`): one merged split of 520,192 docs
+              over the array fast path, no doc-level rewrite; search A
+              equal to the CPU root, with the counts, the buckets and the
+              rare term's stored docs of the step before (the timestamp
+              reorder renumbers doc ids);
+            - gc past the deletion grace: only the merged split's file
+              stays; search A once more.
+            It prints each step's seconds, docs per second of ingest and
+            index, the flagship's p50 over the 4 indexed splits and over
+            the merged one, and the launches of each step.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.
+
+`tests/test_torch_write_path.py` imports `write_docs` and its constants from
+this module, so the CPU tests and phase 13 make their docs the same way.
 """
 
 from __future__ import annotations
@@ -3146,6 +3186,323 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
     return {"launches": path}
 
 
+# --------------------------------------------------------------------------
+# phase 13: the write path
+
+WRITE_DOCS = 524_288            # phases 11-12's split size, as 4 splits
+WRITE_SPLITS = 4
+WRITE_REQUEST_DOCS = 4_096      # docs per ingest request
+WRITE_DELETED_TENANT = 10       # carried by the last request alone
+WRITE_RARE_TERM = 3_000         # ~24 of 524,288 docs: every hit on a page
+WRITE_T0 = 1_600_000_000
+
+
+def write_docs(synthetic, num_docs, request_docs, seed):
+    """hdfs-logs docs with `HDFS_MAPPER`'s fields and the generator's value
+    distributions: timestamps over seven days, in request order with the
+    order inside each request shuffled; tenants 0-9, except the last
+    request's docs, which all carry `WRITE_DELETED_TENANT`; the
+    generator's severity mix; 20 zipf(1.5) body terms over its
+    vocabulary. `tests/test_torch_write_path.py` makes its docs here too."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ts = np.sort(rng.randint(0, 7 * 86_400, size=num_docs)) + WRITE_T0
+    for lo in range(0, num_docs, request_docs):
+        ts[lo:lo + request_docs] = rng.permutation(ts[lo:lo + request_docs])
+    tenants = rng.randint(0, 10, size=num_docs)
+    tenants[num_docs - request_docs:] = WRITE_DELETED_TENANT
+    sev = rng.choice(len(synthetic.SEVERITIES), size=num_docs,
+                     p=synthetic._SEVERITY_P)
+    vocab_size = synthetic._BODY_VOCAB_SIZE
+    words = np.minimum(rng.zipf(1.5, size=(num_docs,
+                                           synthetic._BODY_TOKENS_PER_DOC))
+                       - 1, vocab_size - 1)
+    vocab = [synthetic.body_term(k) for k in range(vocab_size)]
+    return [{"timestamp": int(ts[i]), "tenant_id": int(tenants[i]),
+             "severity_text": synthetic.SEVERITIES[sev[i]],
+             "body": " ".join([vocab[w] for w in words[i]])}
+            for i in range(num_docs)]
+
+
+def write_requests(m, flagship_aggs):
+    """Search A: the flagship (term top-10 by BM25 with its aggregations),
+    c2 as ES-DSL (bool + range, top-100), c3 (the aggregations alone), the
+    deleted tenant's count and every hit of a rare body term by time."""
+    t0_us = WRITE_T0 * 1_000_000
+    c2 = {"bool": {
+        "must": [{"term": {"severity_text": "ERROR"}}],
+        "should": [{"term": {"body": m.body_term(3)}},
+                   {"term": {"body": m.body_term(7)}}],
+        "filter": [{"range": {"timestamp": {"gte": t0_us + DAY_US,
+                                            "lt": t0_us + 4 * DAY_US}}}]}}
+
+    def request(query, **kw):
+        ast = (m.es_query_to_ast(query) if isinstance(query, dict)
+               else m.parse_query_string(query, ["body"]))
+        return m.SearchRequest(index_ids=["hdfs-write"], query_ast=ast, **kw)
+
+    return {
+        "flagship": request("severity_text:ERROR", max_hits=10,
+                            aggs=flagship_aggs),
+        "c2_bool_range_top100": request(c2, max_hits=100),
+        "c3_aggs": request("severity_text:ERROR", max_hits=0,
+                           aggs=flagship_aggs),
+        "deleted_tenant": request(f"tenant_id:{WRITE_DELETED_TENANT}",
+                                  max_hits=0),
+        "rare_term_all_hits": request(
+            f"body:{m.body_term(WRITE_RARE_TERM)}", max_hits=100,
+            sort_fields=(m.SortField("timestamp", "desc"),)),
+    }
+
+
+def check_write(torch, st, m, dev, label, num_docs, seed,
+                flagship_aggs) -> dict:
+    """Phase 13: the node's write flow on the card (WAL ingest, one ingest
+    pass, the delete planner's probes, a compaction pass, GC), searching
+    after each step through a root over a node on the card, each response
+    against a root over a CPU node. Returns the path's launches."""
+    split_docs = num_docs // WRITE_SPLITS
+    out_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_write_")
+    base = out_dir.name
+    resolver = m.StorageResolver.for_test()
+    split_uri, meta_uri = f"file://{base}/splits", f"file://{base}/metastore"
+    split_storage = resolver.resolve(split_uri)
+    metastore = m.FileBackedMetastore(resolver.resolve(meta_uri))
+    index_uid = "hdfs-write:01"
+    metastore.create_index(m.IndexMetadata(
+        index_uid=index_uid, index_config=m.IndexConfig(
+            index_id="hdfs-write", index_uri=split_uri,
+            doc_mapper=m.HDFS_MAPPER, split_num_docs_target=split_docs,
+            # splits at or above the policy's own target never merge
+            merge_policy={"type": "stable_log", "merge_factor": WRITE_SPLITS,
+                          "max_merge_factor": WRITE_SPLITS,
+                          "split_num_docs_target": 10_000_000})))
+    wal_dir = os.path.join(base, "wal")
+    ingester = m.ingest.Ingester(wal_dir, fsync=True)
+    router = m.ingest.IngestRouter(ingester, shards_per_source=1)
+    requests = write_requests(m, flagship_aggs)
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def root(device):
+        ctx = m.svc_mod.SearcherContext(
+            storage_resolver=resolver, device=device, batch_size=8,
+            leaf_cache_bytes=0, enable_agg_cache=False,
+            enable_mask_cache=False)
+        client = m.svc_mod.LocalSearchClient(
+            m.svc_mod.SearchService(ctx, node_id="node-0"))
+        return m.RootSearcher(metastore, {"node-0": client})
+
+    gpu_root, cpu_root = root(dev), root("cpu")
+    seconds, launches = {}, {}
+
+    def search_a(step):
+        k0, l0 = counts()
+        out = {name: gpu_root.search(req) for name, req in requests.items()}
+        launches[step] = {"score_topk": st.score_topk.launches - k0,
+                          "score_topk_lanes": st.score_topk_lanes.launches
+                          - l0}
+        for name, resp in out.items():
+            same_search(resp, aside(cpu_root.search, requests[name]),
+                        f"write {step} {name}")
+            if resp.errors:
+                raise AssertionError(f"write {step} {name}: {resp.errors}")
+        say(f"write search {step}: " + json.dumps(
+            {name: [r.num_hits, len(r.hits), r.num_attempted_splits]
+             for name, r in out.items()}) + " launches="
+            + json.dumps(launches[step]) + " equal_to_cpu_root=True")
+        return out
+
+    def flagship_p50():
+        aside(gpu_root.search, requests["flagship"])
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            aside(gpu_root.search, requests["flagship"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return pct(walls, 0.5)
+
+    def stored(resp):
+        return sorted(json.dumps(h.doc, sort_keys=True) for h in resp.hits)
+
+    st.score_topk.launches = st.score_topk_lanes.launches = 0
+
+    # 1. ingest: requests of 4,096 docs through the router into the WAL
+    t0 = time.perf_counter()
+    docs = write_docs(m.synthetic, num_docs, WRITE_REQUEST_DOCS, seed)
+    docs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, num_docs, WRITE_REQUEST_DOCS):
+        router.ingest(index_uid, docs[lo:lo + WRITE_REQUEST_DOCS])
+    seconds["ingest"] = time.perf_counter() - t0
+    del docs
+    head = ingester.shard_throughput_state()
+    say(f"write ingest: docs={num_docs} requests="
+        f"{num_docs // WRITE_REQUEST_DOCS} fsync=True docs_made_s="
+        f"{docs_s:.3f} s={seconds['ingest']:.3f} docs_per_s="
+        f"{num_docs / seconds['ingest']:.0f} wal={json.dumps(head)}")
+
+    # 2. index: one ingest pass (`Node.run_ingest_pass`), then truncate
+    t0 = time.perf_counter()
+    source_id = m.INGEST_V2_SOURCE_ID
+    metastore.add_source(index_uid, m.SourceConfig(source_id, "ingest"))
+    counters = m.pipeline.IndexingPipeline(
+        m.pipeline.PipelineParams(
+            index_uid=index_uid, source_id=source_id,
+            split_num_docs_target=split_docs,
+            batch_num_docs=WRITE_REQUEST_DOCS),
+        m.HDFS_MAPPER, m.IngestSource(ingester, index_uid, source_id),
+        metastore, split_storage).run_to_completion()
+    checkpoint = metastore.source_checkpoint(index_uid, source_id)
+    for shard in ingester.list_shards(index_uid):
+        position = checkpoint.position_for(shard.shard_id)
+        if position != m.BEGINNING:
+            ingester.truncate(index_uid, source_id, shard.shard_id,
+                              int(position))
+    seconds["index"] = time.perf_counter() - t0
+    published = metastore.list_splits(m.ListSplitsQuery(
+        index_uids=[index_uid], states=[m.SplitState.PUBLISHED]))
+    wal = ingester.shard_throughput_state()
+    wal_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(wal_dir) for f in files)
+    say(f"write index: s={seconds['index']:.3f} docs_per_s="
+        f"{num_docs / seconds['index']:.0f} splits="
+        f"{[s.metadata.num_docs for s in published]} counters="
+        f"{json.dumps(vars(counters))} wal={json.dumps(wal)} "
+        f"wal_bytes_after_truncate={wal_bytes}")
+    if ([s.metadata.num_docs for s in published] != [split_docs]
+            * WRITE_SPLITS or any(s["published"] != num_docs
+                                  for s in wal.values())):
+        raise AssertionError("write index: splits or truncation")
+
+    # 3. search A over the 4 indexed splits
+    t0 = time.perf_counter()
+    indexed = search_a("indexed")
+    p50_indexed = flagship_p50()
+    seconds["search_indexed"] = time.perf_counter() - t0
+    if (indexed["deleted_tenant"].num_hits != WRITE_REQUEST_DOCS
+            or len(indexed["flagship"].hits) != 10):
+        raise AssertionError("write search indexed")
+
+    # 4. delete: a task on the last request's tenant, the planner's count
+    # probes on the card (`run_delete_planner`, the janitor's last step)
+    t0 = time.perf_counter()
+    metastore.create_delete_task(index_uid, {
+        "type": "term", "field": "tenant_id",
+        "value": str(WRITE_DELETED_TENANT)})
+    k0, l0 = counts()
+    planned = m.run_delete_planner(metastore, resolver, node_id="node-0",
+                                   device=dev)
+    launches["delete_probes"] = {
+        "score_topk": st.score_topk.launches - k0,
+        "score_topk_lanes": st.score_topk_lanes.launches - l0}
+    seconds["delete"] = time.perf_counter() - t0
+    say(f"write delete: s={seconds['delete']:.3f} planner="
+        f"{json.dumps(planned)} probe_launches="
+        f"{json.dumps(launches['delete_probes'])}")
+    if planned != {"delete_splits_rewritten": 1,
+                   "delete_splits_fast_forwarded": WRITE_SPLITS - 1,
+                   "delete_splits_pending": 0}:
+        raise AssertionError(f"write delete planner: {planned}")
+    deleted = search_a("deleted")
+    if deleted["deleted_tenant"].num_hits != 0:
+        raise AssertionError("write delete: the tenant's docs remain")
+
+    # 5. merge: one compaction pass (planner and supervisor), which must
+    # take the array fast path: no doc-level rewrite
+    t0 = time.perf_counter()
+    fast, rewrites = [], []
+    merge_splits, iter_all_docs = (m.merge_arrays.merge_splits,
+                                   m.merge_mod._iter_all_docs)
+
+    def counted_merge(readers, **kw):
+        fast.append(len(readers))
+        return merge_splits(readers, **kw)
+
+    def counted_rewrite(reader):
+        rewrites.append(reader)
+        return iter_all_docs(reader)
+
+    m.merge_arrays.merge_splits = counted_merge
+    m.merge_mod._iter_all_docs = counted_rewrite
+    try:
+        planner = m.compaction.CompactionPlanner(metastore)
+        supervisor = m.compaction.CompactorSupervisor(
+            metastore, resolver, node_id="node-0", max_concurrent_merges=1)
+        done = []
+        for task in planner.plan(max_tasks=supervisor.available_slots()):
+            supervisor.submit(task, synchronous=True,
+                              on_done=lambda task, ok: done.append(ok))
+    finally:
+        m.merge_arrays.merge_splits = merge_splits
+        m.merge_mod._iter_all_docs = iter_all_docs
+    seconds["merge"] = time.perf_counter() - t0
+    [merged] = metastore.list_splits(m.ListSplitsQuery(
+        index_uids=[index_uid], states=[m.SplitState.PUBLISHED]))
+    say(f"write merge: s={seconds['merge']:.3f} tasks={done} "
+        f"fast_path_inputs={fast} doc_level_rewrites={len(rewrites)} "
+        f"merged={json.dumps(merged.metadata.to_dict())}")
+    if (done != [True] or fast != [WRITE_SPLITS] or rewrites
+            or merged.metadata.num_docs != num_docs - WRITE_REQUEST_DOCS):
+        raise AssertionError("write merge")
+    t0 = time.perf_counter()
+    after = search_a("merged")
+    p50_merged = flagship_p50()
+    seconds["search_merged"] = time.perf_counter() - t0
+    # the timestamp reorder renumbers doc ids: counts, buckets and stored
+    # docs must hold
+    for name, resp in after.items():
+        if resp.num_hits != deleted[name].num_hits:
+            raise AssertionError(f"write merge {name}: num_hits")
+        if resp.aggregations is not None:
+            same_search(resp.aggregations, deleted[name].aggregations,
+                        f"write merge {name} vs deleted",
+                        path="response.aggregations")
+        elif deleted[name].aggregations is not None:
+            raise AssertionError(f"write merge {name}: aggregations")
+    rare = after["rare_term_all_hits"]
+    if (stored(rare) != stored(deleted["rare_term_all_hits"])
+            or not 0 < len(rare.hits) == rare.num_hits):
+        raise AssertionError("write merge: the rare term's docs")
+
+    # 6. gc past the deletion grace: only the merged split's file stays
+    t0 = time.perf_counter()
+    collected = m.gc.run_garbage_collection(
+        metastore, resolver, now=time.time() + m.gc.DELETION_GRACE_SECS + 1)
+    seconds["gc"] = time.perf_counter() - t0
+    left = split_storage.list_files()
+    say(f"write gc: s={seconds['gc']:.3f} {json.dumps(collected)} "
+        f"files_left={left}")
+    if left != [f"{merged.metadata.split_id}.split"]:
+        raise AssertionError("write gc")
+    search_a("collected")
+
+    path = {"score_topk": st.score_topk.launches,
+            "score_topk_lanes": st.score_topk_lanes.launches}
+    say(f"[{label}] write seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()}))
+    say(f"[{label}] write flagship p50 (10 warm root calls): "
+        f"indexed_4_splits_ms={p50_indexed:.4f} "
+        f"merged_1_split_ms={p50_merged:.4f}")
+    say(f"write launches: {json.dumps(path)} per_step="
+        f"{json.dumps(launches)}")
+    if path["score_topk_lanes"] < 1:
+        raise AssertionError(f"write launches: {path}")
+    del gpu_root, cpu_root
+    out_dir.cleanup()
+    return {"launches": path}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -3489,6 +3846,36 @@ def main(argv=None) -> int:
     del fanned
     say(f"root phase_s={time.perf_counter() - t0:.3f}")
 
+    # 13. the write path, with the counters zeroed again ------------------
+    t0 = time.perf_counter()
+    from quickwit_tpu_torch import compaction, ingest
+    from quickwit_tpu_torch.index import merge_arrays, synthetic
+    from quickwit_tpu_torch.indexing import merge as merge_mod, pipeline
+    from quickwit_tpu_torch.indexing.sources import IngestSource
+    from quickwit_tpu_torch.ingest.router import INGEST_V2_SOURCE_ID
+    from quickwit_tpu_torch.janitor import gc as gc_mod, run_delete_planner
+    from quickwit_tpu_torch.metastore.checkpoint import BEGINNING
+    from quickwit_tpu_torch.models.index_metadata import SourceConfig
+    from quickwit_tpu_torch.models.split_metadata import SplitState
+    written = check_write(
+        torch, st, SimpleNamespace(
+            svc_mod=svc_mod, StorageResolver=StorageResolver,
+            FileBackedMetastore=FileBackedMetastore,
+            ListSplitsQuery=ListSplitsQuery, IndexConfig=IndexConfig,
+            IndexMetadata=IndexMetadata, SourceConfig=SourceConfig,
+            SplitState=SplitState, HDFS_MAPPER=HDFS_MAPPER,
+            synthetic=synthetic, body_term=body_term, ingest=ingest,
+            INGEST_V2_SOURCE_ID=INGEST_V2_SOURCE_ID, pipeline=pipeline,
+            IngestSource=IngestSource, BEGINNING=BEGINNING,
+            merge_arrays=merge_arrays, merge_mod=merge_mod,
+            compaction=compaction, gc=gc_mod,
+            run_delete_planner=run_delete_planner,
+            RootSearcher=RootSearcher, SearchRequest=SearchRequest,
+            SortField=SortField, parse_query_string=parse_query_string,
+            es_query_to_ast=es_query_to_ast),
+        dev, label, WRITE_DOCS, args.seed, requests["flagship"].aggs)
+    say(f"write phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -3500,14 +3887,16 @@ def main(argv=None) -> int:
         # flagship calls before its timing (one per split of each call
         # that runs a program), the chunked phase's scans before its
         # timing (one per posting chunk of a score-sorted scan) and the
-        # root phase's one-split nodes (none: its nodes batch)
+        # root phase's one-split nodes (none: its nodes batch), and the
+        # write phase's searches over one merged split
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
                      + chunked["launches"]
                      + stacking["launches"]["score_topk"]
                      + fanout_launches["score_topk"]
-                     + rooted["launches"]["score_topk"]),
+                     + rooted["launches"]["score_topk"]
+                     + written["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3522,10 +3911,12 @@ def main(argv=None) -> int:
         # the stacking phase's path (the fused groups, the convoy, one per
         # chunk of the chunked groups and the service's group), the
         # fan-out's (one per batch of at most 16 splits) and the root's
-        # (one per scored batch of a node's leaf request)
+        # (one per scored batch of a node's leaf request), and the write
+        # phase's (the root's scored searches over the indexed splits)
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
-                     + rooted["launches"]["score_topk_lanes"]),
+                     + rooted["launches"]["score_topk_lanes"]
+                     + written["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",

@@ -12,7 +12,12 @@ is the full single-split leaf search: the posting-space program (the CUDA
 range roots, search_after, two-key sorts, threshold pushdown, predicate
 masks), every aggregation, phrase and phrase-prefix queries, the split
 writer and generators, split pruning, and every storage backend (RAM,
-local files, S3, GCS, Azure, with their wrappers and the disk split cache).
+local files, S3, GCS, Azure, with their wrappers and the disk split cache);
+above the leaf, the node's search service and the root; and the write
+path: the WAL ingest (`ingest/`), the indexing pipeline and its sources
+(`indexing/`), the array-level merge (`index/merge_arrays.py`), the
+compactor (`compaction/`) and the janitor (`janitor/`, whose delete
+planner probes splits on the device).
 
 Device entry points take `device=None`, which means `cuda`: a call that
 does not name the CPU raises when no GPU is present, it never falls back.

@@ -4,12 +4,12 @@ Role of the reference's `quickwit-metrics` macro registry
 (`quickwit-metrics/src/lib.rs:44-343`): lazily-registered counters, gauges
 and histograms with labels, exposed in Prometheus text format. The port
 registers what its modules read: the root searcher (timeouts, retries,
-profiled queries, the slow-query log and the SLO tracker), the leaf and
-node search service, HBM admission and the resident column store, the
-three cache tiers, the chunked scan and query cancellation, the query
-batcher and stacking, tenancy, fault injection and the flight recorder
-(and, in their own modules, the split cache's counters). Other subsystems'
-metrics come with them.
+profiled queries, the slow-query log and the SLO tracker), the lowering's
+impact prefix cutoff, the leaf and node search service, HBM admission and
+the resident column store, the three cache tiers, the chunked scan and
+query cancellation, the query batcher and stacking, tenancy, fault
+injection and the flight recorder (and, in their own modules, the split
+cache's counters). Other subsystems' metrics come with them.
 """
 
 from __future__ import annotations
@@ -225,6 +225,24 @@ SEARCH_SPLITS_DOWNGRADED_TOTAL = METRICS.counter(
 SEARCH_KERNEL_THRESHOLD_TOTAL = METRICS.counter(
     "qw_search_kernel_threshold_pushdown_total",
     "Plan executions dispatched with a pushed-down top-K threshold scalar")
+
+# --- impact-ordered postings (format v3, index/impact.py) ------------------
+# Host-side prefix-cutoff decisions made at plan lowering: how many
+# 128-posting blocks of the sole scoring term stayed live vs were skipped
+# (never staged to device memory) because their quantized block-max bound
+# could not reach the pushed-down threshold.
+IMPACT_BLOCKS_SCORED_TOTAL = METRICS.counter(
+    "qw_impact_blocks_scored_total",
+    "Impact posting blocks staged and scored (live prefix)")
+IMPACT_BLOCKS_SKIPPED_TOTAL = METRICS.counter(
+    "qw_impact_blocks_skipped_total",
+    "Impact posting blocks skipped by the block-max prefix cutoff")
+IMPACT_POSTINGS_BYTES_AVOIDED_TOTAL = METRICS.counter(
+    "qw_impact_postings_bytes_avoided_total",
+    "Posting bytes (ids+tfs) never staged thanks to the prefix cutoff")
+IMPACT_PREFIX_CUTOFFS_TOTAL = METRICS.counter(
+    "qw_impact_prefix_cutoffs_total",
+    "Plan lowerings that truncated a term's postings to the live prefix")
 
 # --- per-query execution profiles (observability/profile.py) ----------------
 SEARCH_PHASE_SECONDS = METRICS.histogram(

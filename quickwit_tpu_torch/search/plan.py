@@ -20,9 +20,9 @@ Everything here is host code doing exact-byte-range IO through SplitReader
 complete set of buffers the kernel needs in device memory.
 
 Carried over whole from the JAX package's `search/plan.py` (host numpy
-only): `idf` comes from this package's `ops/bm25.py`, `RateLimitedLog` is a
-local copy, and the impact prefix cutoff keeps its arithmetic but drops
-its per-query profile and metrics counters. A phrase's precomputed arrays
+only): `idf` comes from this package's `ops/bm25.py` and `RateLimitedLog`
+is a local copy. The impact prefix cutoff records the reference's profile
+counters and `qw_impact_*` metrics. A phrase's precomputed arrays
 carry the slop in their staging key (the JAX package keys them by the terms
 alone, so a sloppy phrase there can reuse the exact phrase's postings).
 """
@@ -640,6 +640,22 @@ class Lowering:
         while live_blocks < live:
             live_blocks *= 2
         live_blocks = min(live_blocks, nblocks)
+        skipped = nblocks - live_blocks
+        from ..observability.profile import profile_add
+        profile_add("impact_blocks_scored", live_blocks)
+        from ..observability.metrics import (
+            IMPACT_BLOCKS_SCORED_TOTAL, IMPACT_BLOCKS_SKIPPED_TOTAL,
+            IMPACT_POSTINGS_BYTES_AVOIDED_TOTAL, IMPACT_PREFIX_CUTOFFS_TOTAL)
+        IMPACT_BLOCKS_SCORED_TOTAL.inc(live_blocks)
+        if skipped > 0:
+            # ids + tfs are int32: 8 bytes per posting never staged
+            bytes_avoided = skipped * IMPACT_BLOCK * 8
+            profile_add("impact_blocks_skipped", skipped)
+            profile_add("impact_postings_bytes_avoided", bytes_avoided)
+            profile_add("impact_prefix_cutoffs")
+            IMPACT_BLOCKS_SKIPPED_TOTAL.inc(skipped)
+            IMPACT_POSTINGS_BYTES_AVOIDED_TOTAL.inc(bytes_avoided)
+            IMPACT_PREFIX_CUTOFFS_TOTAL.inc()
         return {"bmax": bmax, "scale": scale, "live_blocks": live_blocks,
                 "live_len": live_blocks * IMPACT_BLOCK}
 

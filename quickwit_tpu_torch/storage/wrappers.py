@@ -15,9 +15,7 @@ Roles of the reference's `quickwit-storage` proxies:
 - `CountingStorage` (`counting_storage.rs:1`): per-operation counters
   for tests and the IO metrics surface.
 
-Carried over from the JAX package's `storage/wrappers.py`; the per-query
-profile counter of hedged requests is left out until the port has
-`observability/profile.py`.
+Carried over whole from the JAX package's `storage/wrappers.py`.
 """
 
 from __future__ import annotations
@@ -115,6 +113,10 @@ class TimeoutAndRetryStorage(Storage):
                 if launched < max_attempts:
                     launch()  # hedge: race a fresh attempt, keep waiting
                     launched += 1
+                    # hedged retries are the tail-latency signal the
+                    # profile's storage counters must carry
+                    from ..observability.profile import profile_add
+                    profile_add("storage_hedged_requests")
                     continue
                 raise StorageError(
                     f"get_slice {path}[{start}:{end}] timed out after "
@@ -126,6 +128,8 @@ class TimeoutAndRetryStorage(Storage):
             if launched < max_attempts:
                 launch()  # a failure consumes the retry budget too
                 launched += 1
+                from ..observability.profile import profile_add
+                profile_add("storage_hedged_requests")
                 continue
             if failed >= launched:
                 raise last_error  # every attempt has failed
