@@ -295,6 +295,51 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             It prints each step's seconds, docs per second of ingest and
             index, the flagship's p50 over the 4 indexed splits and over
             the merged one, and the launches of each step.
+14. sources: external sources and the control plane (`indexing/{kafka,
+            kinesis,sqs,cooperative}.py` and their fakes, `cluster/`,
+            `control_plane/`, `common/actors.py`), with the counters
+            zeroed again (`SourcesFlow`):
+            - setup: a `FakeKafkaBroker` (topic `hdfs-logs`, 8
+              partitions), a `FakeKinesisServer` (4 shards) and a
+              `FakeSqsServer` whose queue gets one S3 event per ndjson
+              file landed in a `FakeS3Server`, all on 127.0.0.1 port 0;
+              one index per source over `HDFS_MAPPER` in a
+              `FileBackedMetastore` (split target 131,072); a `Cluster`
+              of three indexers on a `FakeClock`; the
+              `IndexingScheduler`'s plan of the three (index, source)
+              tasks; each planned pipeline a supervised actor on one
+              `Universe`, its turns gated by a `CooperativeIndexingCycle`
+              (2 permits per indexer) around one `IndexingPipeline.
+              run_to_completion()` over the indexer's `make_source`
+              client;
+            - first half: 131,072 Kafka docs (16,384 per partition, one
+              record batch each), 32,768 Kinesis records, 8 files of
+              4,096 docs, all made from `--seed` by `write_docs`; one
+              turn per pipeline;
+            - move: the Kafka task's indexer stops heartbeating, the
+              clock passes `dead_after_secs`, the re-plan moves the Kafka
+              task and keeps the others (drift before the plan is
+              applied, none after);
+            - second half: the rest, drained with the new owner resuming
+              Kafka from the metastore checkpoint, then one more turn (SQS
+              acknowledges published files on the pass after);
+            - exactly once: each index's published docs equal what its
+              source produced, every checkpoint at its end (each
+              partition at its high watermark, each shard at its last
+              sequence number, each file at EOF), every SQS message
+              deleted;
+            - search, on the real clock: the flagship (which must launch
+              `score_topk_lanes`), c2 as ES-DSL and c3 over each index
+              through a root over a node on the card, each equal to a
+              root over a CPU node, and the exactly-once searches (each
+              severity's count, a rare term's hits with their stored
+              docs, each doc once); 10 warm flagship calls per index;
+            - gossip: two `GossipService`s on loopback UDP under a
+              `ScaledClock` discover each other and one ages out of the
+              other's `Cluster` (at most 10 s).
+            It prints the plans, each step's seconds, docs per second per
+            source, CRC32C's thread seconds and share of the phase, the
+            flagship's p50 per index and the launches per request.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -312,11 +357,14 @@ import dataclasses
 import gc
 import json
 import os
+import queue
+import random
 import resource
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -3224,10 +3272,11 @@ def write_docs(synthetic, num_docs, request_docs, seed):
             for i in range(num_docs)]
 
 
-def write_requests(m, flagship_aggs):
-    """Search A: the flagship (term top-10 by BM25 with its aggregations),
-    c2 as ES-DSL (bool + range, top-100), c3 (the aggregations alone), the
-    deleted tenant's count and every hit of a rare body term by time."""
+def write_requests(m, flagship_aggs, index_id="hdfs-write"):
+    """Search A over `index_id`: the flagship (term top-10 by BM25 with its
+    aggregations), c2 as ES-DSL (bool + range, top-100), c3 (the
+    aggregations alone), the deleted tenant's count and every hit of a rare
+    body term by time."""
     t0_us = WRITE_T0 * 1_000_000
     c2 = {"bool": {
         "must": [{"term": {"severity_text": "ERROR"}}],
@@ -3239,7 +3288,7 @@ def write_requests(m, flagship_aggs):
     def request(query, **kw):
         ast = (m.es_query_to_ast(query) if isinstance(query, dict)
                else m.parse_query_string(query, ["body"]))
-        return m.SearchRequest(index_ids=["hdfs-write"], query_ast=ast, **kw)
+        return m.SearchRequest(index_ids=[index_id], query_ast=ast, **kw)
 
     return {
         "flagship": request("severity_text:ERROR", max_hits=10,
@@ -3500,6 +3549,688 @@ def check_write(torch, st, m, dev, label, num_docs, seed,
         raise AssertionError(f"write launches: {path}")
     del gpu_root, cpu_root
     out_dir.cleanup()
+    return {"launches": path}
+
+
+# --------------------------------------------------------------------------
+# phase 14: external sources and the control plane
+
+SOURCES_KINDS = ("kafka", "kinesis", "sqs")
+SOURCES_TOPIC = "hdfs-logs"             # the Kafka topic and Kinesis stream
+SOURCES_BUCKET = "hdfs-logs-landing"    # where the SQS-notified files land
+SOURCES_SIZES = {                       # phase 14 on the card
+    "kafka_partitions": 8, "kafka_docs": 262_144,
+    "kinesis_shards": 4, "kinesis_docs": 65_536,
+    "sqs_files": 16, "sqs_docs": 65_536,
+    "split_docs": 131_072,      # phase 13's split target
+    "rare_term": 600,           # ~30 of 65,536 docs: every hit on a page
+}
+SOURCES_KEYS = {"region": "us-east-1", "access_key": "AKIDSOURCES",
+                "secret_key": "sources-secret"}
+SOURCES_INDEXERS = ("indexer-0", "indexer-1", "indexer-2")
+SOURCES_PERMITS = 2                     # concurrent turns per indexer
+SOURCES_HEARTBEAT_SECS = 1.0
+SOURCES_TURN_TIMEOUT_SECS = 600.0
+
+
+def sources_modules():
+    """The port's modules under the names `SourcesFlow`, `check_sources`
+    and the search helpers read."""
+    from types import SimpleNamespace
+
+    from quickwit_tpu_torch.cluster.gossip import GossipService
+    from quickwit_tpu_torch.cluster.membership import Cluster, ClusterMember
+    from quickwit_tpu_torch.common import clock
+    from quickwit_tpu_torch.common.actors import Actor, Universe
+    from quickwit_tpu_torch.common.uri import Protocol
+    from quickwit_tpu_torch.control_plane import (
+        IndexingScheduler, IndexingTask)
+    from quickwit_tpu_torch.index import synthetic
+    from quickwit_tpu_torch.indexing import kafka, pipeline, sqs
+    from quickwit_tpu_torch.indexing.cooperative import (
+        CooperativeIndexingCycle)
+    from quickwit_tpu_torch.indexing.fake_kafka import FakeKafkaBroker
+    from quickwit_tpu_torch.indexing.fake_kinesis import FakeKinesisServer
+    from quickwit_tpu_torch.indexing.fake_sqs import FakeSqsServer
+    from quickwit_tpu_torch.indexing.sources import make_source
+    from quickwit_tpu_torch.metastore import (
+        FileBackedMetastore, ListSplitsQuery, checkpoint)
+    from quickwit_tpu_torch.models.index_metadata import (
+        IndexConfig, IndexMetadata, SourceConfig)
+    from quickwit_tpu_torch.models.split_metadata import SplitState
+    from quickwit_tpu_torch.query import parse_query_string
+    from quickwit_tpu_torch.query.es_dsl import es_query_to_ast
+    from quickwit_tpu_torch.search import service as svc_mod
+    from quickwit_tpu_torch.search.models import SearchRequest, SortField
+    from quickwit_tpu_torch.search.root import RootSearcher
+    from quickwit_tpu_torch.storage import StorageResolver
+    from quickwit_tpu_torch.storage.fake_s3 import FakeS3Server
+    from quickwit_tpu_torch.storage.s3 import S3CompatibleStorage, S3Config
+    return SimpleNamespace(
+        synthetic=synthetic, HDFS_MAPPER=synthetic.HDFS_MAPPER,
+        body_term=synthetic.body_term, clock=clock,
+        StorageResolver=StorageResolver, Protocol=Protocol,
+        FakeS3Server=FakeS3Server, S3CompatibleStorage=S3CompatibleStorage,
+        S3Config=S3Config, FakeKafkaBroker=FakeKafkaBroker,
+        FakeKinesisServer=FakeKinesisServer, FakeSqsServer=FakeSqsServer,
+        kafka=kafka, sqs=sqs, checkpoint=checkpoint,
+        FileBackedMetastore=FileBackedMetastore,
+        ListSplitsQuery=ListSplitsQuery, IndexMetadata=IndexMetadata,
+        IndexConfig=IndexConfig, SourceConfig=SourceConfig,
+        SplitState=SplitState, Cluster=Cluster, ClusterMember=ClusterMember,
+        GossipService=GossipService, IndexingScheduler=IndexingScheduler,
+        IndexingTask=IndexingTask, Universe=Universe, Actor=Actor,
+        CooperativeIndexingCycle=CooperativeIndexingCycle,
+        make_source=make_source, pipeline=pipeline, svc_mod=svc_mod,
+        RootSearcher=RootSearcher, SearchRequest=SearchRequest,
+        SortField=SortField, parse_query_string=parse_query_string,
+        es_query_to_ast=es_query_to_ast)
+
+
+def sources_docs(synthetic, sizes, seed):
+    """Each source's hdfs-logs docs in production order (`write_docs`, one
+    seed per source, none of them phase 13's)."""
+    return {kind: write_docs(synthetic, sizes[f"{kind}_docs"],
+                             min(WRITE_REQUEST_DOCS, sizes[f"{kind}_docs"]),
+                             seed + 1 + i)
+            for i, kind in enumerate(SOURCES_KINDS)}
+
+
+def s3_event(bucket, key, size):
+    """One S3 `ObjectCreated:Put` event notification, as S3 sends it to
+    SQS."""
+    return json.dumps({"Records": [{
+        "eventVersion": "2.1", "eventSource": "aws:s3",
+        "awsRegion": SOURCES_KEYS["region"], "eventName": "ObjectCreated:Put",
+        "s3": {"s3SchemaVersion": "1.0", "bucket": {"name": bucket},
+               "object": {"key": key, "size": size}}}]})
+
+
+class SourcesFlow:
+    """Phase 14's flow in one package (`m`, a namespace of its modules):
+
+    - a `FakeKafkaBroker` (one topic), a `FakeKinesisServer` (one stream)
+      and a `FakeSqsServer` whose queue carries one S3 event per ndjson
+      file landed in a `FakeS3Server`, which the flow's `StorageResolver`
+      serves `s3://` from;
+    - one index over `HDFS_MAPPER` per source in a `FileBackedMetastore`;
+    - a `Cluster` of three indexers heartbeating on a `FakeClock`, whose
+      live indexers the `IndexingScheduler` plans the (index, source)
+      tasks over, built as `Node.schedule_indexing` builds them;
+    - each planned pipeline a supervised actor on one `Universe`; a turn
+      is `Node._cooperative_drain` (a `CooperativeIndexingCycle` per
+      pipeline, `SOURCES_PERMITS` permits per indexer) around
+      `Node.run_source_pass` (one `IndexingPipeline.run_to_completion()`
+      over the indexer's cached `make_source` client).
+
+    Call the steps under `use_clock(flow.clock)`; `close()` stops every
+    actor, client and server. `tests/test_torch_sources_path.py` runs the
+    flow in both packages at a small size."""
+
+    def __init__(self, m, sizes, seed, base_uri):
+        self.m, self.sizes, self.base_uri = m, dict(sizes), base_uri
+        self.docs = sources_docs(m.synthetic, sizes, seed)
+        self.clock = m.clock.FakeClock()
+        self.resolver = m.StorageResolver.for_test()
+        self.servers, self.clients, self.actors = [], {}, {}
+        self.cycles, self.wake, self.sent = {}, {}, []
+        self.permits = {node: threading.Semaphore(SOURCES_PERMITS)
+                        for node in SOURCES_INDEXERS}
+        self.live = set(SOURCES_INDEXERS)
+        self.universe = None
+        self.produced = {kind: 0 for kind in SOURCES_KINDS}
+
+    # --- set-up and tear-down ---------------------------------------------
+    def setup(self):
+        """Start the brokers, create the indexes, join the indexers and
+        apply the first plan. Returns the plan."""
+        m, sizes, keys = self.m, self.sizes, SOURCES_KEYS
+        s3 = m.FakeS3Server(access_key=keys["access_key"],
+                            secret_key=keys["secret_key"]).start()
+        self.servers.append(s3)
+        s3_config = m.S3Config(endpoint=s3.endpoint, **keys)
+        self.resolver.register(m.Protocol.S3, lambda uri: m.S3CompatibleStorage(
+            uri, s3_config))
+        self.broker = m.FakeKafkaBroker()
+        self.servers.append(self.broker)
+        self.broker.create_topic(SOURCES_TOPIC,
+                                 partitions=sizes["kafka_partitions"])
+        self.kinesis = m.FakeKinesisServer(
+            access_key=keys["access_key"], secret_key=keys["secret_key"])
+        self.servers.append(self.kinesis.start())
+        self.kinesis.create_stream(SOURCES_TOPIC,
+                                   num_shards=sizes["kinesis_shards"])
+        self.sqs = m.FakeSqsServer(access_key=keys["access_key"],
+                                   secret_key=keys["secret_key"],
+                                   visibility_timeout=30.0)
+        self.servers.append(self.sqs.start())
+        params = {
+            "kafka": {"topic": SOURCES_TOPIC, "client_params": {
+                "bootstrap.servers": f"{self.broker.host}:"
+                                     f"{self.broker.port}"}},
+            "kinesis": {"stream_name": SOURCES_TOPIC,
+                        "endpoint": self.kinesis.endpoint, **keys},
+            "sqs": {"queue_url": self.sqs.queue_url,
+                    "endpoint": self.sqs.endpoint, **keys}}
+        self.metastore = m.FileBackedMetastore(
+            self.resolver.resolve(f"{self.base_uri}/metastore"))
+        for kind in SOURCES_KINDS:
+            self.metastore.create_index(m.IndexMetadata(
+                index_uid=f"hdfs-{kind}:01", index_config=m.IndexConfig(
+                    index_id=f"hdfs-{kind}",
+                    index_uri=f"{self.base_uri}/{kind}",
+                    doc_mapper=m.HDFS_MAPPER,
+                    split_num_docs_target=sizes["split_docs"]),
+                sources={f"{kind}-source": m.SourceConfig(
+                    f"{kind}-source", kind, params=params[kind])}))
+        self.cluster = m.Cluster("control-plane",
+                                 ("control_plane", "metastore"))
+        for i, node in enumerate(SOURCES_INDEXERS):
+            self.cluster.join(m.ClusterMember(
+                node, ("indexer",), rest_endpoint=f"127.0.0.1:{7280 + i}"))
+        self.tick(4 * SOURCES_HEARTBEAT_SECS)
+        self.scheduler = m.IndexingScheduler()
+        self.tasks = self.indexing_tasks()
+        self.plan = self.scheduler.schedule(
+            self.tasks, self.cluster.nodes_with_role("indexer"))
+        self.universe = m.Universe()
+        self.apply(self.plan)
+        return self.plan
+
+    def close(self):
+        """Stop every actor, source client and server (safe to repeat)."""
+        if self.universe is not None:
+            self.universe.quit(timeout=10.0)
+            self.universe = None
+        for client in self.clients.values():
+            client.close()
+        self.clients.clear()
+        for server in self.servers:
+            server.stop()
+        self.servers.clear()
+
+    # --- the control plane --------------------------------------------------
+    def indexing_tasks(self):
+        """`Node.schedule_indexing`'s logical tasks: one per enabled
+        external source (no ingest shards here)."""
+        return [self.m.IndexingTask(metadata.index_uid, source_id)
+                for metadata in self.metastore.list_indexes()
+                for source_id, source in metadata.sources.items()
+                if source.enabled and source.source_type != "void"]
+
+    def tick(self, secs):
+        """Move the fake clock by `secs` in heartbeat steps; each live
+        indexer heartbeats at every step."""
+        for _ in range(max(1, -int(-secs // SOURCES_HEARTBEAT_SECS))):
+            self.clock.advance(SOURCES_HEARTBEAT_SECS)
+            for node in sorted(self.live):
+                self.cluster.record_heartbeat(node)
+
+    def running(self):
+        """What the live indexers report running."""
+        out = {}
+        for (node, _key), (_mailbox, task) in sorted(self.actors.items()):
+            if node in self.live:
+                out.setdefault(node, []).append(task)
+        return out
+
+    def apply(self, plan):
+        """Each live indexer's `apply_indexing_plan`: pipelines it no
+        longer holds stop; the ones it gained start. A dead indexer's
+        pipelines stop with it."""
+        want = {(node, t.key): t for node, tasks in plan.assignments.items()
+                for t in tasks}
+        for key in list(self.actors):
+            if key not in want or key[0] not in self.live:
+                mailbox, _task = self.actors.pop(key)
+                mailbox.close()
+                client = self.clients.pop(key, None)
+                if client is not None:
+                    client.close()
+        for key, task in sorted(want.items()):
+            if key not in self.actors:
+                self.actors[key] = (self.spawn(key[0], task), task)
+
+    def spawn(self, node, task):
+        flow = self
+
+        class PipelineActor(self.m.Actor):
+            name = f"{node}/{task.index_uid}/{task.source_id}"
+
+            def on_message(self, reply):
+                try:
+                    reply.put(flow.turn(node, task))
+                except BaseException as exc:
+                    reply.put(exc)
+                    raise
+
+        mailbox, _handle = self.universe.spawn(
+            PipelineActor(), capacity=1, supervised=True, max_restarts=3)
+        return mailbox
+
+    # --- one pipeline turn (in the actor's thread) --------------------------
+    def turn(self, node, task):
+        """`Node._cooperative_drain` around `Node.run_source_pass`."""
+        m, key = self.m, (node, task.key)
+        metadata = self.metastore.index_metadata_by_uid(task.index_uid)
+        now = m.clock.monotonic()
+        cycle = self.cycles.get(key)
+        if cycle is None:
+            cycle = self.cycles[key] = m.CooperativeIndexingCycle(
+                task.index_uid, metadata.index_config.commit_timeout_secs,
+                self.permits[node], clock=m.clock.monotonic)
+            self.wake[key] = now + cycle.initial_sleep_duration()
+        if now < self.wake[key]:
+            return {"ran": False}
+        period = cycle.begin_period(timeout=0.001)
+        if period is None:
+            return {"ran": False}
+        published, t0 = 0, time.perf_counter()
+        try:
+            counters = self.source_pass(node, task, metadata)
+            published = counters.num_published_bytes
+        finally:
+            sleep_s, metrics = period.end_of_work(published)
+            self.wake[key] = m.clock.monotonic() + sleep_s
+        return {"ran": True, "node": node, "source": task.source_id,
+                "s": time.perf_counter() - t0, "sleep_s": sleep_s,
+                "cpu_load_mcpu": metrics.cpu_load_mcpu,
+                "counters": vars(counters)}
+
+    def source_pass(self, node, task, metadata):
+        m, key = self.m, (node, task.key)
+        config = metadata.sources[task.source_id]
+        client = self.clients.get(key)
+        if client is None:
+            client = self.clients[key] = m.make_source(
+                config.source_type, config.params, resolver=self.resolver)
+        # a Kafka partition's half is one record batch, fetched whole
+        batch = (self.sizes["kafka_docs"]
+                 // self.sizes["kafka_partitions"] // 2)
+        pipeline = m.pipeline.IndexingPipeline(
+            m.pipeline.PipelineParams(
+                index_uid=task.index_uid, source_id=task.source_id,
+                node_id=node,
+                split_num_docs_target=metadata.index_config
+                .split_num_docs_target, batch_num_docs=batch),
+            metadata.index_config.doc_mapper, client, self.metastore,
+            self.resolver.resolve(metadata.index_config.index_uri))
+        try:
+            return pipeline.run_to_completion()
+        except Exception:
+            self.clients.pop(key, None)
+            client.close()
+            raise
+
+    def drain(self, label):
+        """One turn of every planned pipeline, each on its actor. A turn
+        the cycle defers (before its wake time, or no permit free) is sent
+        again once the clock has moved to the earliest pending wake.
+        Returns {(node, task key): turn}."""
+        pending, ran = dict(self.actors), {}
+        for _ in range(16):
+            replies = {}
+            for key, (mailbox, _task) in pending.items():
+                replies[key] = queue.Queue()
+                mailbox.send(replies[key], timeout=60.0)
+            for key, reply in replies.items():
+                try:
+                    out = reply.get(timeout=SOURCES_TURN_TIMEOUT_SECS)
+                except queue.Empty:
+                    raise AssertionError(f"sources {label}: {key} hung")
+                if isinstance(out, BaseException):
+                    raise AssertionError(
+                        f"sources {label}: {key} raised {out!r}") from out
+                if out["ran"]:
+                    ran[key] = out
+                    del pending[key]
+            if not pending:
+                return ran
+            self.tick(max(min(self.wake[k] for k in pending)
+                          - self.clock.monotonic(), 0.0))
+        raise AssertionError(f"sources {label}: turns never ran: "
+                             f"{sorted(pending)}")
+
+    # --- the brokers' producers ---------------------------------------------
+    def produce(self, half):
+        """Half `half` (0 or 1) of every source's docs: each Kafka
+        partition's half as one record batch, Kinesis records round-robin
+        over the shards, SQS files landed in S3 and notified one event
+        each."""
+        sizes = self.sizes
+        docs = self.docs["kafka"]
+        per = len(docs) // sizes["kafka_partitions"]
+        for p in range(sizes["kafka_partitions"]):
+            part = docs[p * per:(p + 1) * per]
+            part = part[half * per // 2:(half + 1) * per // 2]
+            self.broker.seed(SOURCES_TOPIC, p,
+                             [json.dumps(d).encode() for d in part])
+            self.produced["kafka"] += len(part)
+        docs = self.docs["kinesis"]
+        for d in docs[half * len(docs) // 2:(half + 1) * len(docs) // 2]:
+            self.kinesis.put_record(SOURCES_TOPIC, json.dumps(d).encode())
+            self.produced["kinesis"] += 1
+        docs, files = self.docs["sqs"], sizes["sqs_files"]
+        per = len(docs) // files
+        landing = self.resolver.resolve(f"s3://{SOURCES_BUCKET}/landing")
+        for f in range(half * files // 2, (half + 1) * files // 2):
+            data = "\n".join(json.dumps(d)
+                             for d in docs[f * per:(f + 1) * per]).encode()
+            landing.put(f"part-{f:05d}.ndjson", data)
+            self.sent.append(self.sqs.send_message(s3_event(
+                SOURCES_BUCKET, f"landing/part-{f:05d}.ndjson", len(data))))
+            self.produced["sqs"] += per
+
+    # --- the steps ----------------------------------------------------------
+    def move(self):
+        """The Kafka task's indexer stops heartbeating; once the clock has
+        passed `dead_after_secs` the scheduler re-plans over the live
+        indexers and the plan is applied."""
+        kafka = next(t for t in self.tasks if t.source_id == "kafka-source")
+        before = self.plan
+        dead = before.node_of(kafka)
+        self.live.discard(dead)
+        self.tick(self.cluster.dead_after_secs + SOURCES_HEARTBEAT_SECS)
+        indexers = self.cluster.nodes_with_role("indexer")
+        running = self.running()
+        self.plan = self.scheduler.schedule(self.tasks, indexers)
+        drift = self.scheduler.plan_drift(running)
+        self.apply(self.plan)
+        drift_after = self.scheduler.plan_drift(self.running())
+        out = {"dead": dead, "indexers": indexers,
+               "kafka": [dead, self.plan.node_of(kafka)],
+               "stayed": {t.source_id: [before.node_of(t),
+                                        self.plan.node_of(t)]
+                          for t in self.tasks if t != kafka},
+               "drift_before_apply": drift, "drift_after_apply": drift_after}
+        if (dead in indexers or self.plan.node_of(kafka) in (None, dead)
+                or any(a != b for a, b in out["stayed"].values())
+                or not drift or drift_after):
+            raise AssertionError(f"sources move: {out}")
+        return out
+
+    def published(self, kind):
+        return self.metastore.list_splits(self.m.ListSplitsQuery(
+            index_uids=[f"hdfs-{kind}:01"],
+            states=[self.m.SplitState.PUBLISHED]))
+
+    def expected_checkpoints(self):
+        m, sizes = self.m, self.sizes
+        per = sizes["kafka_docs"] // sizes["kafka_partitions"]
+        return {
+            "kafka": {f"{SOURCES_TOPIC}:{p}": m.checkpoint.offset_position(per)
+                      for p in range(sizes["kafka_partitions"])},
+            "kinesis": {f"{SOURCES_TOPIC}:{shard}": str(records[-1][0])
+                        for shard, records
+                        in self.kinesis.streams[SOURCES_TOPIC].items()},
+            "sqs": {f"s3://{SOURCES_BUCKET}/landing/part-{f:05d}.ndjson":
+                    m.sqs.EOF_POSITION for f in range(sizes["sqs_files"])}}
+
+    def exactly_once(self):
+        """Every index's published docs equal what its source produced,
+        every checkpoint sits at its end, every SQS message is deleted."""
+        want = self.expected_checkpoints()
+        out = {"splits": {}, "published_docs": {}, "checkpoints_at_end": {}}
+        for kind in SOURCES_KINDS:
+            splits = self.published(kind)
+            out["splits"][kind] = sorted(s.metadata.num_docs for s in splits)
+            out["published_docs"][kind] = sum(out["splits"][kind])
+            checkpoint = self.metastore.source_checkpoint(
+                f"hdfs-{kind}:01", f"{kind}-source").to_dict()
+            out["checkpoints_at_end"][kind] = checkpoint == want[kind]
+        out["sqs_messages"] = {"sent": len(self.sent),
+                               "deleted": len(set(self.sqs.deleted)),
+                               "left": self.sqs.visible_count()}
+        if (out["published_docs"] != self.produced
+                or not all(out["checkpoints_at_end"].values())
+                or sorted(set(self.sqs.deleted)) != sorted(self.sent)
+                or self.sqs.visible_count()):
+            raise AssertionError(f"sources exactly once: {out} produced="
+                                 f"{self.produced}")
+        return out
+
+
+def sources_requests(m, index_id, rare_term):
+    """The exactly-once searches: each severity's count (every doc carries
+    one severity term once) and every hit of a rare body term with its
+    stored doc."""
+    def request(query, **kw):
+        return m.SearchRequest(index_ids=[index_id],
+                               query_ast=m.parse_query_string(query, ["body"]),
+                               **kw)
+
+    out = {f"severity_{s}": request(f"severity_text:{s}", max_hits=0)
+           for s in m.synthetic.SEVERITIES}
+    out["rare_term_all_hits"] = request(
+        f"body:{m.body_term(rare_term)}", max_hits=1000,
+        sort_fields=(m.SortField("timestamp", "desc"),))
+    return out
+
+
+def check_exactly_once_search(m, docs, rare_term, responses, label):
+    """The searches of `sources_requests` against the docs produced: each
+    severity counted once per doc, and the rare term's hits are its docs,
+    each once."""
+    counts = {s: 0 for s in m.synthetic.SEVERITIES}
+    for d in docs:
+        counts[d["severity_text"]] += 1
+    got = {s: responses[f"severity_{s}"].num_hits for s in counts}
+    term = m.body_term(rare_term)
+    want_docs = sorted(json.dumps(d, sort_keys=True) for d in docs
+                       if term in d["body"].split())
+    rare = responses["rare_term_all_hits"]
+    got_docs = sorted(json.dumps(h.doc, sort_keys=True) for h in rare.hits)
+    keys = {(h.split_id, h.doc_id) for h in rare.hits}
+    if (got != counts or got_docs != want_docs or not want_docs
+            or len(keys) != len(rare.hits) or len(keys) != rare.num_hits):
+        raise AssertionError(f"{label}: severities {got} vs {counts}, rare "
+                             f"term {len(got_docs)} vs {len(want_docs)} docs")
+    return {"severities": got, "rare_term_hits": len(got_docs)}
+
+
+def check_gossip(m, timeout_s=10.0):
+    """Two `GossipService`s on loopback UDP under a `ScaledClock`: they
+    discover each other, one stops, and it ages out of the other's
+    `Cluster`. Returns the seconds of each part."""
+    seconds, t0 = {}, time.perf_counter()
+    deadline = t0 + timeout_s
+
+    def until(predicate):
+        while not predicate():
+            if time.perf_counter() > deadline:
+                raise AssertionError("gossip: past its time cap")
+            time.sleep(0.01)
+
+    def alive(cluster):
+        return {member.node_id for member in cluster.members()}
+
+    with m.clock.use_clock(m.clock.ScaledClock(factor=0.25)):
+        nodes = []
+        try:
+            for name in ("gossip-a", "gossip-b"):
+                cluster = m.Cluster(name, ("indexer",),
+                                    rest_endpoint="127.0.0.1:0",
+                                    dead_after_secs=1.0)
+                seeds = (f"127.0.0.1:{nodes[0][1].port}",) if nodes else ()
+                service = m.GossipService(
+                    cluster, name, ("indexer",), rest_endpoint="127.0.0.1:0",
+                    bind_host="127.0.0.1", bind_port=0, seeds=seeds,
+                    interval_secs=0.05)
+                nodes.append((cluster, service))
+                service.start()
+            (ca, _a), (cb, b) = nodes
+            until(lambda: alive(ca) == alive(cb) == {"gossip-a", "gossip-b"})
+            seconds["discover"] = time.perf_counter() - t0
+            b.stop()
+            t1 = time.perf_counter()
+            until(lambda: alive(ca) == {"gossip-a"})
+            seconds["age_out"] = time.perf_counter() - t1
+        finally:
+            for _cluster, service in nodes:
+                service.stop()
+    return seconds
+
+
+def check_sources(torch, st, m, dev, label, seed, sizes,
+                  flagship_aggs) -> dict:
+    """Phase 14: three external sources drained by pipelines the control
+    plane places on three indexers, one indexer dying half way; then the
+    root's searches over the three indexes on the card against a CPU root,
+    and gossip on loopback. Returns the path's launches."""
+    out_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sources_")
+    seconds, launches, turns = {}, {}, []
+    crc = {"s": 0.0, "bytes": 0}
+    crc32c = m.kafka.crc32c
+
+    def timed_crc(data):
+        t = time.thread_time()
+        try:
+            return crc32c(data)
+        finally:
+            crc["s"] += time.thread_time() - t
+            crc["bytes"] += len(data)
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    flow = SourcesFlow(m, sizes, seed, f"file://{out_dir.name}")
+    seconds["docs"] = time.perf_counter() - t0
+    m.kafka.crc32c = timed_crc
+    try:
+        with m.clock.use_clock(flow.clock), m.clock.use_rng(
+                random.Random(seed)):
+            t0 = time.perf_counter()
+            plan = flow.setup()
+            seconds["setup"] = time.perf_counter() - t0
+            say("sources plan: " + json.dumps(
+                {n: [t.source_id for t in ts]
+                 for n, ts in plan.assignments.items()}))
+            for step, half in (("first_half", 0), ("second_half", 1)):
+                if step == "second_half":
+                    t0 = time.perf_counter()
+                    moved = flow.move()
+                    seconds["move"] = time.perf_counter() - t0
+                    say("sources move: " + json.dumps(moved) + " plan: "
+                        + json.dumps({n: [t.source_id for t in ts] for n, ts
+                                      in flow.plan.assignments.items()}))
+                t0 = time.perf_counter()
+                flow.produce(half)
+                seconds[f"produce_{step}"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ran = flow.drain(step)
+                if step == "second_half":
+                    # SQS deletes a message once the checkpoint proves
+                    # its file published: on the pass after
+                    ran_ack = flow.drain("ack")
+                    turns.extend(ran_ack.values())
+                seconds[f"drain_{step}"] = time.perf_counter() - t0
+                turns.extend(ran.values())
+                say(f"sources {step}: " + json.dumps(
+                    {f"{t['node']}/{t['source']}": {
+                        "docs": t["counters"]["num_docs_processed"],
+                        "splits": t["counters"]["num_splits_published"],
+                        "s": round(t["s"], 3), "sleep_s": t["sleep_s"]}
+                     for t in ran.values()}))
+            t0 = time.perf_counter()
+            once = flow.exactly_once()
+            seconds["exactly_once"] = time.perf_counter() - t0
+        say("sources exactly once: " + json.dumps(once))
+        per_source = {kind: {"docs": 0, "s": 0.0} for kind in SOURCES_KINDS}
+        for t in turns:
+            kind = t["source"].split("-")[0]
+            per_source[kind]["docs"] += t["counters"]["num_docs_processed"]
+            per_source[kind]["s"] += t["s"]
+        say(f"[{label}] sources docs per second (turn seconds, all turns "
+            f"concurrent on one host): " + json.dumps(
+                {k: {"docs": v["docs"], "s": round(v["s"], 3),
+                     "docs_per_s": round(v["docs"] / v["s"])}
+                 for k, v in per_source.items()}))
+
+        # search A on the card, on the real clock, against a CPU root
+        def root(device):
+            ctx = m.svc_mod.SearcherContext(
+                storage_resolver=flow.resolver, device=device, batch_size=8,
+                leaf_cache_bytes=0, enable_agg_cache=False,
+                enable_mask_cache=False)
+            client = m.svc_mod.LocalSearchClient(
+                m.svc_mod.SearchService(ctx, node_id="node-0"))
+            return m.RootSearcher(flow.metastore, {"node-0": client})
+
+        gpu_root, cpu_root = root(dev), root("cpu")
+        st.score_topk.launches = st.score_topk_lanes.launches = 0
+        t0 = time.perf_counter()
+        p50 = {}
+        for kind in SOURCES_KINDS:
+            index_id = f"hdfs-{kind}"
+            full = write_requests(m, flagship_aggs, index_id)
+            requests = {name: full[name] for name in (
+                "flagship", "c2_bool_range_top100", "c3_aggs")}
+            for name, req in requests.items():
+                k0, l0 = counts()
+                got = gpu_root.search(req)
+                launches[f"{kind}/{name}"] = {
+                    "score_topk": st.score_topk.launches - k0,
+                    "score_topk_lanes": st.score_topk_lanes.launches - l0}
+                if got.errors:
+                    raise AssertionError(f"sources {kind} {name}: "
+                                         f"{got.errors}")
+                same_search(got, aside(cpu_root.search, req),
+                            f"sources {kind} {name}")
+            if launches[f"{kind}/flagship"]["score_topk_lanes"] < 1:
+                raise AssertionError(f"sources {kind} flagship: "
+                                     f"{launches[f'{kind}/flagship']}")
+            checks = sources_requests(m, index_id, sizes["rare_term"])
+            found = {}
+            for name, req in checks.items():
+                found[name] = aside(gpu_root.search, req)
+                same_search(found[name], aside(cpu_root.search, req),
+                            f"sources {kind} {name}")
+            say(f"sources search {kind}: " + json.dumps(
+                check_exactly_once_search(m, flow.docs[kind],
+                                          sizes["rare_term"], found,
+                                          f"sources {kind}"))
+                + " equal_to_cpu_root=True")
+            aside(gpu_root.search, requests["flagship"])
+            walls = []
+            for _ in range(10):
+                t1 = time.perf_counter()
+                aside(gpu_root.search, requests["flagship"])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            p50[kind] = pct(walls, 0.5)
+        seconds["search"] = time.perf_counter() - t0
+        path = {"score_topk": st.score_topk.launches,
+                "score_topk_lanes": st.score_topk_lanes.launches}
+        del gpu_root, cpu_root
+
+        t0 = time.perf_counter()
+        gossip = check_gossip(m)
+        seconds["gossip"] = time.perf_counter() - t0
+    finally:
+        m.kafka.crc32c = crc32c
+        flow.close()
+        out_dir.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    say(f"sources gossip: {json.dumps(gossip)}")
+    say(f"[{label}] sources seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()})
+        + f" phase_s={phase_s:.3f}")
+    say(f"[{label}] sources crc32c: s={crc['s']:.3f} bytes={crc['bytes']} "
+        f"mb_per_s={crc['bytes'] / max(crc['s'], 1e-9) / 1e6:.2f} "
+        f"share_of_phase={crc['s'] / phase_s:.4f}")
+    say(f"[{label}] sources flagship p50 (10 warm root calls, 2 splits "
+        f"each): " + json.dumps({k: round(v, 4) for k, v in p50.items()}))
+    say(f"sources launches: {json.dumps(path)} per_request="
+        f"{json.dumps(launches)}")
     return {"launches": path}
 
 
@@ -3876,6 +4607,14 @@ def main(argv=None) -> int:
         dev, label, WRITE_DOCS, args.seed, requests["flagship"].aggs)
     say(f"write phase_s={time.perf_counter() - t0:.3f}")
 
+    # 14. external sources and the control plane, with the counters zeroed
+    # again ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    sourced = check_sources(torch, st, sources_modules(), dev, label,
+                            args.seed, SOURCES_SIZES,
+                            requests["flagship"].aggs)
+    say(f"sources phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -3887,8 +4626,9 @@ def main(argv=None) -> int:
         # flagship calls before its timing (one per split of each call
         # that runs a program), the chunked phase's scans before its
         # timing (one per posting chunk of a score-sorted scan) and the
-        # root phase's one-split nodes (none: its nodes batch), and the
-        # write phase's searches over one merged split
+        # root phase's one-split nodes (none: its nodes batch), the write
+        # phase's searches over one merged split and the sources phase's
+        # (none: each index's two splits batch)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
@@ -3896,7 +4636,8 @@ def main(argv=None) -> int:
                      + stacking["launches"]["score_topk"]
                      + fanout_launches["score_topk"]
                      + rooted["launches"]["score_topk"]
-                     + written["launches"]["score_topk"]),
+                     + written["launches"]["score_topk"]
+                     + sourced["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3911,12 +4652,14 @@ def main(argv=None) -> int:
         # the stacking phase's path (the fused groups, the convoy, one per
         # chunk of the chunked groups and the service's group), the
         # fan-out's (one per batch of at most 16 splits) and the root's
-        # (one per scored batch of a node's leaf request), and the write
-        # phase's (the root's scored searches over the indexed splits)
+        # (one per scored batch of a node's leaf request), the write
+        # phase's (the root's scored searches over the indexed splits) and
+        # the sources phase's (its flagship and c2 over each index)
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
                      + rooted["launches"]["score_topk_lanes"]
-                     + written["launches"]["score_topk_lanes"]),
+                     + written["launches"]["score_topk_lanes"]
+                     + sourced["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",

@@ -9,9 +9,7 @@ Pulsar/SQS are interface-compatible stubs raising a clear error (their SDKs
 are not in this image; the queue-source coordinator pattern of the reference
 maps onto `Source` one-to-one).
 
-Carried over whole from the JAX package's `indexing/sources.py`. The
-Kafka, Kinesis and SQS branches of `make_source` import modules this
-package does not carry yet, so they raise `ImportError` until it does.
+Carried over whole from the JAX package's `indexing/sources.py`.
 """
 
 from __future__ import annotations

@@ -434,16 +434,27 @@ def test_make_source_matches_jax(tmp_path):
             sources.make_source("pulsar", {})
 
 
-@pytest.mark.parametrize("source_type,params", [
+@pytest.mark.parametrize("source_type,params,module,cls", [
     ("kafka", {"topic": "t",
-               "client_params": {"bootstrap.servers": "127.0.0.1:1"}}),
-    ("kinesis", {"stream_name": "s", "endpoint": "http://127.0.0.1:1"}),
+               "client_params": {"bootstrap.servers": "127.0.0.1:1"}},
+     "kafka", "KafkaSource"),
+    ("kinesis", {"stream_name": "s", "endpoint": "http://127.0.0.1:1"},
+     "kinesis", "KinesisSource"),
     ("sqs", {"queue_url": "http://127.0.0.1:1/q",
-             "endpoint": "http://127.0.0.1:1"}),
+             "endpoint": "http://127.0.0.1:1"}, "sqs", "SqsFileSource"),
 ])
-def test_external_sources_raise_until_ported(source_type, params):
-    """The Kafka, Kinesis and SQS sources are not in the port yet: their
-    branches raise instead of returning another source."""
-    sources = importlib.import_module("quickwit_tpu_torch.indexing.sources")
-    with pytest.raises(ImportError):
-        sources.make_source(source_type, params)
+def test_make_source_builds_external_sources(source_type, params, module,
+                                             cls):
+    """The Kafka, Kinesis and SQS branches return the port's own sources,
+    as the JAX package's return its sources, and building one connects to
+    nothing (port 1 has no listener)."""
+    for root in PACKAGES:
+        sources = importlib.import_module(f"{root}.indexing.sources")
+        source = sources.make_source(source_type, params)
+        want = getattr(importlib.import_module(f"{root}.indexing.{module}"),
+                       cls)
+        assert type(source) is want
+        client = source.client
+        assert (client._conn is None if source_type != "kafka"
+                else not client._socks)
+        source.close()
