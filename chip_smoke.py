@@ -340,6 +340,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             It prints the plans, each step's seconds, docs per second per
             source, CRC32C's thread seconds and share of the phase, the
             flagship's p50 per index and the launches per request.
+15. serve : the node and its REST front door (`serve/{node,rest}.py`,
+            `cli.py`, `client.py`), with the counters zeroed again; every
+            comparison and timing launch is counted apart:
+            - part A, the node as users start it: `python -u -m
+              quickwit_tpu_torch.cli run` in a subprocess configured by
+              the environment alone (`QW_REST_PORT=0`, a `file://`
+              metastore and index root in a temporary directory outside
+              the checkout, no `QW_DEVICE`: the node runs on `cuda`),
+              its port read from its "listening on" line; through the
+              port's `QuickwitClient`, an index over `HDFS_MAPPER`'s
+              fields (split target 131,072) and 262,144 docs from
+              `write_docs(--seed)` in two ndjson requests (two published
+              splits); then the flagship (query string, top-10 by score,
+              its aggregations), c2 (ES-DSL bool + range, top-100 by
+              timestamp desc), c3 (the aggregations alone) and an ES
+              scroll over c2 in three pages of 100 (equal to a top-300
+              request), each equal as JSON to an in-process CPU node's
+              (`NodeConfig(device="cpu", roles=("searcher",))`) over the
+              same files; the published splits unchanged; 20 warm
+              flagship calls over REST; SIGINT, exit 0 within 10 s. Its
+              launches are not counted: they happen in the subprocess;
+            - part B, REST over phase 12's splits: a node on the card over
+              phase 12's metastore files and phase 11's bytes behind a
+              `RestServer` on port 0: the flagship (one `score_topk_lanes`
+              launch: one batch of 8 splits) equal to phase 12's root
+              response as `rest.py` serializes it, c5 over the 64 otel
+              splits through `_elastic` equal to phase 12's, 8 concurrent
+              searches of distinct rare body terms each equal to the same
+              request alone through a CPU node, the developer routes
+              (debug, `/metrics` as Prometheus text, the Chrome trace with
+              this phase's dispatch events), and the flagship's REST
+              p50/p90 in turns with the same node's root call, beside
+              phase 12's root p50.
+            It prints each step's seconds, the ingest docs/s and part
+            B's launches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -2558,6 +2593,26 @@ def busy_ms(summary: str) -> float:
     return float(summary.split("device_busy_ms_per_call=")[1].split()[0])
 
 
+def _hdfs_split_with_docs(args) -> bytes:
+    """One hdfs split with its doc store (a process-pool worker)."""
+    from quickwit_tpu_torch.index.synthetic import synthetic_hdfs_split
+    num_docs, seed = args
+    return synthetic_hdfs_split(num_docs, seed=seed, store_docs=True)
+
+
+def hdfs_splits_in_parallel(num_docs: int, seeds: list) -> list:
+    """The generator's hdfs splits for `seeds`, one worker process per
+    split up to the host's cores: the same bytes as one after the other,
+    in a fraction of the time the whole smoke has."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    workers = max(1, min(len(seeds), os.cpu_count() or 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_hdfs_split_with_docs,
+                             [(num_docs, seed) for seed in seeds]))
+
+
 def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
                  otel_splits=FANOUT_OTEL_SPLITS, otel_docs=FANOUT_OTEL_DOCS,
                  hdfs_splits=FANOUT_HDFS_SPLITS,
@@ -2596,9 +2651,8 @@ def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
     t0 = time.perf_counter()
     hdfs_ids = [f"hdfs{i}" for i in range(hdfs_splits)]
     hdfs_bytes = 0
-    for i, split_id in enumerate(hdfs_ids):
-        data = m.synthetic_hdfs_split(hdfs_docs, seed=FANOUT_HDFS_SEED + i,
-                                      store_docs=True)
+    for split_id, data in zip(hdfs_ids, hdfs_splits_in_parallel(
+            hdfs_docs, [FANOUT_HDFS_SEED + i for i in range(hdfs_splits)])):
         hdfs_bytes += len(data)
         storage.put(f"{split_id}.split", data)
     del data
@@ -2860,6 +2914,7 @@ def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
 # phase 12: root search
 
 SPLITS_URI = "ram:///chip_fanout"      # phase 11's storage
+METASTORE_URI = "ram:///chip_metastore"  # phase 12's metastore files
 
 
 def split_metadata(m, reader, split_id, index_uid, mapper):
@@ -2960,8 +3015,8 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
     t0 = time.perf_counter()
     resolver = m.StorageResolver()
     resolver.register(m.Protocol.RAM, lambda _uri: storage)
-    metastore = m.FileBackedMetastore(
-        m.RamStorage(m.Uri.parse("ram:///chip_metastore")))
+    meta_storage = m.RamStorage(m.Uri.parse(METASTORE_URI))
+    metastore = m.FileBackedMetastore(meta_storage)
     for index_id, mapper, ids in (
             ("hdfs-logs", m.HDFS_MAPPER, hdfs_ids),
             ("otel-traces", m.OTEL_BENCH_MAPPER, otel_ids),
@@ -3205,6 +3260,7 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
          lambda: m.fanout.execute_batch(batch5, requests["c5_otel_64splits"],
                                         device=dev)),
     )
+    root_p50 = {}
     for name, root_call, other_name, other_call in pairs:
         aside(root_call)
         aside(other_call)
@@ -3218,6 +3274,7 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
             torch.cuda.synchronize()
             walls.append((t1 - t0) * 1e3)
             other_walls.append((time.perf_counter() - t1) * 1e3)
+        root_p50[name] = pct(walls, 0.5)
         profiled = aside(gpu_root.search, dataclasses.replace(
             requests[name], profile=True))
         prof = aside(device_profile, torch, root_call, 3, os.path.join(
@@ -3231,7 +3288,11 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
             + json.dumps(profiled.profile["counters"]))
         say(f"[{label}] profile root {name}: {prof}")
     say(f"root node budget: {json.dumps(gpu_ctx.hbm_budget.stats())}")
-    return {"launches": path}
+    # what phase 15 serves over REST: the bytes, the metastore files and
+    # the responses on the card it must equal
+    return {"launches": path, "storage": storage,
+            "meta_storage": meta_storage, "flagship": out["flagship"],
+            "c5": out["c5_otel_64splits"], "root_p50_ms": root_p50}
 
 
 # --------------------------------------------------------------------------
@@ -4234,6 +4295,427 @@ def check_sources(torch, st, m, dev, label, seed, sizes,
     return {"launches": path}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the node and its REST front door
+
+SERVE_DOCS = 262_144            # part A: two ingest requests of one split
+SERVE_REQUEST_DOCS = 131_072    # each (~40 MB of ndjson, under the burst)
+SERVE_RARE_TERMS = 8            # part B: concurrent searches, one term each
+SERVE_RARE_FIRST = 2_000        # the first of those body terms
+SERVE_START_S = 120.0           # the CLI node's start: torch and the card
+SERVE_STOP_S = 10.0             # SIGINT to exit (cli.py's cmd_run)
+CLOCK_KEYS = ("elapsed_time_micros", "took")   # wall times in a response
+
+
+def without_clock(value):
+    """A parsed JSON response without its wall-time keys."""
+    if isinstance(value, dict):
+        return {k: without_clock(v) for k, v in value.items()
+                if k not in CLOCK_KEYS}
+    if isinstance(value, list):
+        return [without_clock(v) for v in value]
+    return value
+
+
+def rest(port, method, path, body=None, timeout=900.0):
+    """One REST call on 127.0.0.1; fails unless it answers 200. Returns
+    the parsed JSON body, or the text of a non-JSON one."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else (
+            body if isinstance(body, bytes) else json.dumps(body).encode())
+        conn.request(method, path, body=data)
+        response = conn.getresponse()
+        payload = response.read()
+    finally:
+        conn.close()
+    if response.status != 200:
+        raise AssertionError(f"REST {method} {path}: {response.status} "
+                             f"{payload[:300]!r}")
+    if response.getheader("Content-Type", "").startswith(
+            "application/json"):
+        return json.loads(payload)
+    return payload.decode()
+
+
+def prometheus_samples(text: str) -> int:
+    """The number of samples in a Prometheus text exposition; fails on a
+    line that is neither a comment nor `name{labels} value`."""
+    import re
+    sample = re.compile(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? '
+                        r'(-?[0-9.]+(e[-+]?[0-9]+)?|[-+]?Inf|NaN)'
+                        r'( -?[0-9]+)?')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not sample.fullmatch(line):
+            raise AssertionError(f"/metrics: not Prometheus text: {line!r}")
+        n += 1
+    return n
+
+
+def read_listening_line(proc, timeout_s: float) -> str:
+    """The CLI node's `... listening on http://host:port` line."""
+    import selectors
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    end = time.monotonic() + timeout_s
+    seen = []
+    while time.monotonic() < end:
+        if not sel.select(timeout=max(end - time.monotonic(), 0.0)):
+            break
+        line = proc.stdout.readline()
+        if not line:
+            break
+        seen.append(line.rstrip())
+        if "listening on" in line:
+            return line.strip()
+    raise AssertionError(f"the CLI node printed no listening line in "
+                         f"{timeout_s:.0f} s: {seen}")
+
+
+def serve_requests(m, flagship_aggs, t0_s):
+    """Part A's requests, as REST bodies: the flagship (query string,
+    top-10 by score, its aggregations), c2 as ES-DSL (bool + range, top-100
+    by timestamp desc) and c3 (the aggregations alone)."""
+    t0_us = t0_s * 1_000_000
+    c2 = {"bool": {
+        "must": [{"term": {"severity_text": "ERROR"}}],
+        "should": [{"term": {"body": m.body_term(3)}},
+                   {"term": {"body": m.body_term(7)}}],
+        "filter": [{"range": {"timestamp": {"gte": t0_us + DAY_US,
+                                            "lt": t0_us + 4 * DAY_US}}}]}}
+    by_ts = [{"timestamp": {"order": "desc"}}]
+    return {
+        "flagship": ("POST", "/api/v1/hdfs-logs/search",
+                     {"query": "severity_text:ERROR", "max_hits": 10,
+                      "aggs": flagship_aggs}),
+        "c2": ("POST", "/api/v1/_elastic/hdfs-logs/_search",
+               {"query": c2, "size": 100, "sort": by_ts}),
+        "c3": ("POST", "/api/v1/hdfs-logs/search",
+               {"query": "severity_text:ERROR", "max_hits": 0,
+                "aggs": flagship_aggs}),
+        "c2_top300": ("POST", "/api/v1/_elastic/hdfs-logs/_search",
+                      {"query": c2, "size": 300, "sort": by_ts}),
+    }
+
+
+def es_scroll(port, body, pages: int) -> list:
+    """`pages` pages of an ES scroll over `body` (its `size` per page)."""
+    out = [rest(port, "POST",
+                "/api/v1/_elastic/hdfs-logs/_search?scroll=1m", body)]
+    for _ in range(pages - 1):
+        out.append(rest(port, "POST", "/api/v1/_elastic/_search/scroll",
+                        {"scroll_id": out[-1]["_scroll_id"],
+                         "scroll": "1m"}))
+    return out
+
+
+def serve_cli_node(m, dev, label, here, seed, flagship_aggs, docs_total,
+                   request_docs, iters) -> dict:
+    """Part A: `python -u -m quickwit_tpu_torch.cli run` in a subprocess,
+    configured from the environment alone (no `QW_DEVICE` on the card),
+    fed and searched through the port's `QuickwitClient` and REST, each
+    response held against an in-process CPU node over the same files."""
+    import signal
+    steps = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    env = {k: v for k, v in os.environ.items() if k != "QW_DEVICE"}
+    if dev.type != "cuda":   # a rehearsal on the CPU names it
+        env["QW_DEVICE"] = "cpu"
+    env.update(QW_REST_PORT="0", PYTHONPATH=here,
+               QW_METASTORE_URI=f"file://{tmp.name}/metastore",
+               QW_DEFAULT_INDEX_ROOT_URI=f"file://{tmp.name}/indexes")
+    stderr = open(os.path.join(tmp.name, "node.stderr"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "quickwit_tpu_torch.cli", "run"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=stderr, text=True)
+    cpu_server = None
+    try:
+        line = read_listening_line(proc, SERVE_START_S)
+        endpoint = line.rsplit("://", 1)[1]
+        port = int(endpoint.rsplit(":", 1)[1])
+        steps["start"] = time.perf_counter() - t0
+        say(f"serve A: {line}")
+        client = m.client.QuickwitClient(endpoint, timeout_secs=900.0)
+        client.create_index({
+            "index_id": "hdfs-logs", "doc_mapping": m.HDFS_MAPPER.to_dict(),
+            "indexing_settings": {"split_num_docs_target": request_docs}})
+        t0 = time.perf_counter()
+        docs = write_docs(m.synthetic, docs_total, request_docs, seed)
+        steps["docs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for lo in range(0, docs_total, request_docs):
+            out = client.ingest("hdfs-logs", docs[lo:lo + request_docs],
+                                commit="force")
+            if out["num_ingested_docs"] != request_docs:
+                raise AssertionError(f"serve A ingest: {out}")
+        steps["ingest"] = time.perf_counter() - t0
+        del docs
+        client.close()
+
+        def published():
+            return sorted((s["metadata"]["split_id"],
+                           s["metadata"]["num_docs"])
+                          for s in rest(port, "GET", "/api/v1/indexes/"
+                                        "hdfs-logs/splits")["splits"]
+                          if s["state"] == "Published")
+        splits = published()
+        say(f"serve A splits: {json.dumps(splits)}")
+        if [n for _, n in splits] != [request_docs] * (
+                docs_total // request_docs):
+            raise AssertionError(f"serve A: published splits {splits}")
+
+        # the same files behind a CPU node in this process
+        cpu_node = m.serve.Node(m.serve.NodeConfig(
+            node_id="cpu-ref", roles=("searcher",), rest_port=0,
+            device="cpu", data_dir=os.path.join(tmp.name, "cpu-ref"),
+            metastore_uri=env["QW_METASTORE_URI"],
+            default_index_root_uri=env["QW_DEFAULT_INDEX_ROOT_URI"]),
+            storage_resolver=m.StorageResolver.default())
+        cpu_server = m.serve.RestServer(cpu_node)
+        cpu_server.start()
+        t0 = time.perf_counter()
+        reqs = serve_requests(m, flagship_aggs, WRITE_T0)
+        answers = {}
+        for name, (method, path, body) in reqs.items():
+            got = rest(port, method, path, body)
+            want = rest(cpu_server.port, method, path, body)
+            same_search(without_clock(got), without_clock(want),
+                        f"serve A {name}")
+            answers[name] = got
+        scroll = {p: es_scroll(p, reqs["c2"][2], 3)
+                  for p in (port, cpu_server.port)}
+        for i, (got, want) in enumerate(zip(scroll[port],
+                                            scroll[cpu_server.port])):
+            same_search(without_clock(got)["hits"],
+                        without_clock(want)["hits"], f"serve A scroll {i}")
+        scrolled = [h["_source"] for page in scroll[port]
+                    for h in page["hits"]["hits"]]
+        top300 = [h["_source"] for h in answers["c2_top300"]["hits"]["hits"]]
+        if scrolled != top300 or len(top300) != 300:
+            raise AssertionError(
+                f"serve A: the scroll's 3 pages ({len(scrolled)} docs) are "
+                f"not the top-300 ({len(top300)} of "
+                f"{answers['c2_top300']['hits']['total']['value']})")
+        steps["compare"] = time.perf_counter() - t0
+        if published() != splits:
+            raise AssertionError("serve A: the published splits changed "
+                                 "during the comparisons")
+        flagship = answers["flagship"]
+        say(f"serve A: flagship num_hits={flagship['num_hits']} hits="
+            f"{len(flagship['hits'])} c2 hits="
+            f"{len(answers['c2']['hits']['hits'])} of "
+            f"{answers['c2']['hits']['total']['value']} c3 buckets="
+            f"{len(answers['c3']['aggregations']['over_time']['buckets'])}"
+            f" scroll=3x100 equal_to_top300=True equal_to_cpu_node=True "
+            f"launches=not counted (subprocess)")
+        if flagship["num_hits"] <= 0 or len(flagship["hits"]) != 10 or len(
+                answers["c2"]["hits"]["hits"]) != 100:
+            raise AssertionError("serve A: empty answers")
+
+        method, path, body = reqs["flagship"]
+        rest(port, method, path, body)
+        walls = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            rest(port, method, path, body)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        say(f"[{label}] serve A timing flagship over REST (2 splits, the "
+            f"CLI node on {dev.type}): p50_ms={pct(walls, 0.5):.4f} "
+            f"p90_ms={pct(walls, 0.9):.4f} iters={iters}")
+
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=SERVE_STOP_S)
+        steps["stop"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"serve A: the CLI node exited {rc} on "
+                                 f"SIGINT")
+        say(f"[{label}] serve A seconds: "
+            + json.dumps({k: round(v, 3) for k, v in steps.items()})
+            + f" ingest_docs_per_s={docs_total / steps['ingest']:.0f}")
+        return {"flagship_p50_ms": pct(walls, 0.5), "steps": steps}
+    except BaseException:
+        stderr.flush()
+        with open(stderr.name) as f:
+            say("serve A node stderr (tail):\n" + f.read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        proc.stdout.close()
+        stderr.close()
+        if cpu_server is not None:
+            cpu_server.stop()
+        tmp.cleanup()
+
+
+def serve_phase12_node(torch, st, m, dev, label, iters, rooted,
+                       flagship_aggs) -> dict:
+    """Part B: an in-process node on the card behind a `RestServer` over
+    phase 12's metastore files and phase 11's bytes: the flagship and c5
+    against phase 12's responses, 8 concurrent searches against a CPU
+    node, the developer routes, and the flagship's REST p50 beside the
+    same node's root p50. Returns the launches of its path."""
+    from concurrent.futures import ThreadPoolExecutor
+    storage, meta_storage = rooted["storage"], rooted["meta_storage"]
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda uri: (
+        meta_storage if str(uri).startswith(METASTORE_URI) else storage))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_b_")
+
+    def node(device, node_id, **kw):
+        n = m.serve.Node(m.serve.NodeConfig(
+            node_id=node_id, rest_port=0, device=device,
+            metastore_uri=METASTORE_URI, default_index_root_uri=SPLITS_URI,
+            data_dir=os.path.join(tmp.name, node_id), **kw),
+            storage_resolver=resolver)
+        server = m.serve.RestServer(n)
+        server.start()
+        return n, server
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args):
+        saved = counts()
+        try:
+            return fn(*args)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    on_card = dev.type == "cuda"
+    servers = []
+    try:
+        t0 = time.perf_counter()
+        gpu_node, gpu_server = node(dev.type, "serve-b")
+        _, cpu_server = node("cpu", "serve-b-cpu", roles=("searcher",))
+        servers += [gpu_server, cpu_server]
+        gport, cport = gpu_server.port, cpu_server.port
+        steps = {"start": time.perf_counter() - t0}
+        m.flight.FLIGHT.begin_run()
+        st.score_topk.launches = st.score_topk_lanes.launches = 0
+        seen = {}
+
+        # the flagship: one batch of 8 splits, equal to phase 12's root
+        flagship_body = {"query": "severity_text:ERROR", "max_hits": 10,
+                         "aggs": flagship_aggs,
+                         "snippet_fields": "severity_text"}
+        t0 = time.perf_counter()
+        k0, l0 = counts()
+        got = rest(gport, "POST", "/api/v1/hdfs-logs/search", flagship_body)
+        seen["flagship"] = {"score_topk": st.score_topk.launches - k0,
+                            "score_topk_lanes":
+                                st.score_topk_lanes.launches - l0}
+        want = json.loads(json.dumps(rooted["flagship"].to_dict()))
+        same_search(without_clock(got), without_clock(want),
+                    "serve B flagship vs phase 12's root")
+        if on_card and seen["flagship"] != {"score_topk": 0,
+                                            "score_topk_lanes": 1}:
+            raise AssertionError(f"serve B flagship: {seen['flagship']}")
+
+        # c5 over the 64 otel splits through _elastic
+        c5_body = {"query": {"match_all": {}}, "size": 0, "aggs": {
+            "latency": {"percentiles": {"field": "span_duration_micros",
+                                        "percents": [50, 95, 99]}}}}
+        k0, l0 = counts()
+        got = rest(gport, "POST", "/api/v1/_elastic/otel-traces/_search",
+                   c5_body)
+        seen["c5"] = {"score_topk": st.score_topk.launches - k0,
+                      "score_topk_lanes": st.score_topk_lanes.launches - l0}
+        es_request = gpu_server._es_search_request("otel-traces", c5_body,
+                                                   {})
+        want = json.loads(json.dumps(gpu_server._es_search_response(
+            rooted["c5"], es_request)))
+        same_search(without_clock(got), without_clock(want),
+                    "serve B c5 vs phase 12's root")
+        steps["flagship_c5"] = time.perf_counter() - t0
+
+        # 8 concurrent searches, one rare body term each, each against the
+        # same request alone through the CPU node
+        t0 = time.perf_counter()
+        bodies = [{"query": f"body:{m.body_term(SERVE_RARE_FIRST + i)}",
+                   "max_hits": 10} for i in range(SERVE_RARE_TERMS)]
+        k0, l0 = counts()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            got_all = list(pool.map(lambda b: rest(
+                gport, "POST", "/api/v1/hdfs-logs/search", b), bodies))
+        seen["concurrent"] = {"score_topk": st.score_topk.launches - k0,
+                              "score_topk_lanes":
+                                  st.score_topk_lanes.launches - l0}
+        for i, (body, got) in enumerate(zip(bodies, got_all)):
+            want = aside(rest, cport, "POST", "/api/v1/hdfs-logs/search",
+                         body)
+            same_search(without_clock(got), without_clock(want),
+                        f"serve B concurrent {body['query']}")
+        say("serve B concurrent: num_hits=" + json.dumps(
+            [g["num_hits"] for g in got_all]) + " equal_to_solo_cpu=True")
+        steps["concurrent"] = time.perf_counter() - t0
+
+        # the developer routes
+        debug = rest(gport, "GET", "/api/v1/developer/debug")
+        samples = prometheus_samples(rest(gport, "GET", "/metrics"))
+        trace = rest(gport, "GET", "/api/v1/developer/trace")
+        kinds = {e.get("name") for e in trace["traceEvents"]}
+        say(f"serve B developer: jit_cache_entries="
+            f"{debug['jit_cache_entries']} metrics_samples={samples} "
+            f"trace_events={len(trace['traceEvents'])} "
+            f"dispatch_launch={'dispatch.launch' in kinds}")
+        if debug["jit_cache_entries"] <= 0 or not {
+                "dispatch.launch", "query.start", "query.done"} <= kinds:
+            raise AssertionError("serve B developer routes")
+        path = {"score_topk": st.score_topk.launches,
+                "score_topk_lanes": st.score_topk_lanes.launches}
+        say(f"serve launches: {json.dumps(path)} per request "
+            f"{json.dumps(seen)}")
+
+        # the flagship over REST beside the same node's root, in turns:
+        # the request the REST route builds, without HTTP and JSON
+        sr = m.rest_mod._search_request_from_params(
+            "hdfs-logs", flagship_body, gpu_server._default_fields(
+                "hdfs-logs"))
+        aside(rest, gport, "POST", "/api/v1/hdfs-logs/search", flagship_body)
+        aside(gpu_node.root_searcher.search, sr)
+        rest_walls, root_walls = [], []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            aside(rest, gport, "POST", "/api/v1/hdfs-logs/search",
+                  flagship_body)
+            t1 = time.perf_counter()
+            aside(gpu_node.root_searcher.search, sr)
+            rest_walls.append((t1 - t0) * 1e3)
+            root_walls.append((time.perf_counter() - t1) * 1e3)
+        say(f"[{label}] serve B timing flagship (8 hdfs splits): "
+            f"rest_p50_ms={pct(rest_walls, 0.5):.4f} rest_p90_ms="
+            f"{pct(rest_walls, 0.9):.4f} node_root_p50_ms="
+            f"{pct(root_walls, 0.5):.4f} node_root_p90_ms="
+            f"{pct(root_walls, 0.9):.4f} phase12_root_p50_ms="
+            f"{rooted['root_p50_ms']['flagship']:.4f} iters={iters}")
+        say(f"[{label}] serve B seconds: "
+            + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+        return {"launches": path}
+    finally:
+        for server in servers:
+            server.stop()
+        tmp.cleanup()
+
+
+def check_serve(torch, st, m, dev, label, here, seed, iters, rooted,
+                flagship_aggs, docs_total=SERVE_DOCS,
+                request_docs=SERVE_REQUEST_DOCS) -> dict:
+    """Phase 15: the node as users start it (part A) and REST over phase
+    12's splits (part B). Returns part B's launches."""
+    served = serve_cli_node(m, dev, label, here, seed, flagship_aggs,
+                            docs_total, request_docs, iters)
+    return {**serve_phase12_node(torch, st, m, dev, label, iters, rooted,
+                                 flagship_aggs), "a": served}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -4536,7 +5018,6 @@ def main(argv=None) -> int:
             SearchRequest=SearchRequest, MatchAll=MatchAll,
             IncrementalCollector=IncrementalCollector,
             leaf_search_single_split=leaf_search_single_split,
-            synthetic_hdfs_split=synthetic_hdfs_split,
             synthetic_otel_split=synthetic_otel_split,
             score_postings=score_postings),
         dev, args.iters, label, here, flush, {**requests, **doc_reqs})
@@ -4615,6 +5096,20 @@ def main(argv=None) -> int:
                             requests["flagship"].aggs)
     say(f"sources phase_s={time.perf_counter() - t0:.3f}")
 
+    # 15. the node and its REST front door, with the counters zeroed again
+    t0 = time.perf_counter()
+    from quickwit_tpu_torch import client as client_mod, serve
+    from quickwit_tpu_torch.serve import rest as rest_mod
+    served = check_serve(
+        torch, st, SimpleNamespace(
+            serve=serve, client=client_mod, rest_mod=rest_mod, flight=flight,
+            StorageResolver=StorageResolver, Protocol=Protocol,
+            synthetic=synthetic, HDFS_MAPPER=HDFS_MAPPER,
+            body_term=body_term),
+        dev, label, here, args.seed, args.iters, rooted,
+        requests["flagship"].aggs)
+    say(f"serve phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -4627,8 +5122,8 @@ def main(argv=None) -> int:
         # that runs a program), the chunked phase's scans before its
         # timing (one per posting chunk of a score-sorted scan) and the
         # root phase's one-split nodes (none: its nodes batch), the write
-        # phase's searches over one merged split and the sources phase's
-        # (none: each index's two splits batch)
+        # phase's searches over one merged split and the sources and serve
+        # phases' (none: their splits batch)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
@@ -4637,7 +5132,8 @@ def main(argv=None) -> int:
                      + fanout_launches["score_topk"]
                      + rooted["launches"]["score_topk"]
                      + written["launches"]["score_topk"]
-                     + sourced["launches"]["score_topk"]),
+                     + sourced["launches"]["score_topk"]
+                     + served["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4653,13 +5149,17 @@ def main(argv=None) -> int:
         # chunk of the chunked groups and the service's group), the
         # fan-out's (one per batch of at most 16 splits) and the root's
         # (one per scored batch of a node's leaf request), the write
-        # phase's (the root's scored searches over the indexed splits) and
-        # the sources phase's (its flagship and c2 over each index)
+        # phase's (the root's scored searches over the indexed splits), the
+        # sources phase's (its flagship and c2 over each index) and the
+        # serve phase's part B (its flagship and concurrent searches; part
+        # A's node runs in a subprocess, whose counts this process cannot
+        # read)
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
                      + rooted["launches"]["score_topk_lanes"]
                      + written["launches"]["score_topk_lanes"]
-                     + sourced["launches"]["score_topk_lanes"]),
+                     + sourced["launches"]["score_topk_lanes"]
+                     + served["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names

@@ -1,15 +1,18 @@
-"""Service middleware: rate limiting.
+"""Service middleware: rate limiting + circuit breaking.
 
-Role of the reference's tower layer stack (`quickwit-common/src/tower/`):
-the token bucket behind the tenant quotas (`tenancy/registry.py`). The
-circuit breaker comes with the cluster clients that use it.
+Role of the reference's tower layer stack (`quickwit-common/src/tower/` —
+rate-limit, circuit-breaker, load-shed wrapped around every codegen'd
+client): protect services from overload and stop hammering dead peers.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Callable, TypeVar
 
 from .clock import monotonic
+
+T = TypeVar("T")
 
 
 class RateLimitExceeded(Exception):
@@ -67,3 +70,61 @@ class TokenBucket:
         if not self.try_acquire(cost):
             raise RateLimitExceeded(
                 f"rate limit exceeded ({self.rate}/s, burst {self.burst})")
+
+
+class CircuitOpen(Exception):
+    pass
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker (reference
+    `tower/circuit_breaker.rs:47`): after `failure_threshold` consecutive
+    failures the circuit opens for `cooldown_secs`; the first call after the
+    cooldown is the half-open probe."""
+
+    def __init__(self, failure_threshold: int = 5, cooldown_secs: float = 10.0,
+                 counts_as_failure: Callable[[BaseException], bool] = None):
+        self.failure_threshold = failure_threshold
+        self.cooldown_secs = cooldown_secs
+        # which exceptions indicate a DEAD peer (connection-level); peer
+        # application errors (4xx) must not open the circuit
+        self.counts_as_failure = counts_as_failure or (lambda exc: True)
+        self._consecutive_failures = 0
+        self._opened_at: float | None = None
+        # qwlint: disable-next-line=QW008 - middleware leaf locks
+        # (rate/concurrency counters); no instrumented ops inside their
+        # critical sections
+        self._lock = threading.Lock()
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            if self._opened_at is None:
+                return "closed"
+            if monotonic() - self._opened_at >= self.cooldown_secs:
+                return "half-open"
+            return "open"
+
+    def call(self, fn: Callable[[], T]) -> T:
+        with self._lock:
+            if self._opened_at is not None:
+                if monotonic() - self._opened_at < self.cooldown_secs:
+                    raise CircuitOpen(
+                        f"circuit open ({self._consecutive_failures} consecutive failures)")
+                # half-open: admit a SINGLE probe — re-arm the cooldown so
+                # concurrent callers keep failing fast instead of piling
+                # timeouts onto a possibly-dead peer
+                self._opened_at = monotonic()
+        try:
+            result = fn()
+        except Exception as exc:
+            if self.counts_as_failure(exc):
+                with self._lock:
+                    self._consecutive_failures += 1
+                    if self._consecutive_failures >= self.failure_threshold:
+                        self._opened_at = monotonic()
+            raise
+        with self._lock:
+            self._consecutive_failures = 0
+            self._opened_at = None
+        return result

@@ -39,9 +39,10 @@ Design constraints, all load-bearing:
 
 Exports: `to_chrome_trace()` renders the merged timeline as Chrome
 trace-event / Perfetto JSON; `tail_for_query()` returns a query's events;
-`dst_tail()` is the calling thread's deterministic tail. The port records
-host-side events only: device timings from CUDA events, and the REST and
-CLI exporters, come with the serving modules.
+`dst_tail()` is the calling thread's deterministic tail. The recorder
+holds host-side events, as the JAX one does. Its two exporters are the
+REST route `GET /api/v1/developer/trace` (`serve/rest.py`) and
+`python -m quickwit_tpu_torch.cli trace export` (`cli.py`).
 """
 
 from __future__ import annotations

@@ -293,6 +293,7 @@ def _build_batch(request: SearchRequest, doc_mapper: DocMapper,
 
 # lane program key -> {device: program}; lanes of one signature share one
 _LANE_PROGRAMS: dict[tuple, dict[str, Any]] = {}
+ex.PROGRAM_CACHES.append(_LANE_PROGRAMS)
 
 
 def _merge_agg_stack(trees: list):

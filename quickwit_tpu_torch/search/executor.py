@@ -1046,6 +1046,16 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
 # kept per key so that a second group of one structure reuses its program
 _MULTI_CACHE: dict[tuple, dict[str, Any]] = {}
 _STACKED_CACHE: dict[tuple, dict[str, Any]] = {}
+# every per-structure program cache, for `executor_cache_size`; the
+# fan-out's lane programs register here too
+PROGRAM_CACHES: list[dict] = [_MULTI_CACHE, _STACKED_CACHE]
+
+
+def executor_cache_size() -> int:
+    """Leaf programs held in the program caches, one per (structure,
+    device): the REST debug route's `jit_cache_entries`."""
+    return sum(len(by_device) for cache in PROGRAM_CACHES
+               for by_device in cache.values())
 
 
 def _batch_bucket(n: int) -> int:
