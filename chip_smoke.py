@@ -375,6 +375,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               phase 12's root p50.
             It prints each step's seconds, the ingest docs/s and part
             B's launches.
+16. grpc  : the gRPC plane (`serve/{grpc_server,http2,hpack_huffman,
+            binwire}.py`), the SQL metastore (`metastore/sql.py`) and the
+            offload pool (`offload/*`), over phase 11's bytes and a
+            `sqlite://` metastore in a temporary directory filled through
+            the metastore API with phase 12's records, with the counters
+            zeroed again; every comparison and timing launch is counted
+            apart. Part A: three nodes on the card in this process, each
+            with `grpc_port=0` and each a member of the others' cluster;
+            the root on node 0 reaches its peers through
+            `GrpcSearchClient` (its LeafSearch RPCs counted); the flagship over the 8 hdfs splits and c5 over the
+            64 otel splits each equal to phase 12's root response; then 20
+            warm calls of one leaf request (the flagship over the 8 hdfs
+            splits) to one peer, through gRPC and HTTP in turns, with
+            their payload bytes in binwire and JSON; an OTLP trace export
+            over gRPC read back through Jaeger `GetTrace`. Part B, after
+            part A's nodes stop and their resident columns are evicted:
+            worker nodes W1 and W2 (searcher role) and node M with
+            `offload={"endpoints": [W1, W2], "max_local_splits": 16}`
+            (restarted before each run, so it cuts the same 16 local
+            splits): c5 equal to phase 12's with 48 splits on the workers
+            and none back; a scored leaf request over the 64 otel splits
+            through another offloading node, equal to a node without
+            offload, launching `score_topk_lanes`; c5 through those two
+            nodes in turns, 20 warm calls of distinct percentiles (no
+            cache answers); W2's listener stopped (a retry, still 48 remote,
+            none back); W1's too (all 48 run on M's card).
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -3288,11 +3314,13 @@ def check_root(torch, st, m, dev, iters, label, here, reqs, fanned) -> dict:
             + json.dumps(profiled.profile["counters"]))
         say(f"[{label}] profile root {name}: {prof}")
     say(f"root node budget: {json.dumps(gpu_ctx.hbm_budget.stats())}")
-    # what phase 15 serves over REST: the bytes, the metastore files and
-    # the responses on the card it must equal
+    # what phases 15 and 16 serve: the bytes, the metastore files, the
+    # requests and the responses on the card they must equal
     return {"launches": path, "storage": storage,
             "meta_storage": meta_storage, "flagship": out["flagship"],
-            "c5": out["c5_otel_64splits"], "root_p50_ms": root_p50}
+            "c5": out["c5_otel_64splits"], "root_p50_ms": root_p50,
+            "requests": requests, "hdfs_ids": hdfs_ids,
+            "otel_ids": otel_ids}
 
 
 # --------------------------------------------------------------------------
@@ -4716,6 +4744,522 @@ def check_serve(torch, st, m, dev, label, here, seed, iters, rooted,
                                  flagship_aggs), "a": served}
 
 
+# --------------------------------------------------------------------------
+# phase 16: the gRPC plane, the SQL metastore and the offload pool
+
+OFFLOAD_LOCAL_SPLITS = 16       # M's `offload.max_local_splits`
+OFFLOAD_DELTAS = {              # what an offloading run moves
+    "remote": ("OFFLOAD_SPLITS_TOTAL", {"outcome": "remote"}),
+    "fallback_local": ("OFFLOAD_SPLITS_TOTAL", {"outcome": "fallback_local"}),
+    "retries": ("OFFLOAD_RETRIES_TOTAL", {}),
+    "hedges": ("OFFLOAD_HEDGES_TOTAL", {"outcome": "launched"}),
+    "steals": ("OFFLOAD_STEALS_TOTAL", {}),
+}
+
+
+def otlp_trace_request(grpc_mod, trace_id: str, service: str,
+                       names: list, start_s: int) -> bytes:
+    """An OTLP ExportTraceServiceRequest with one span per name in one
+    trace, as a collector sends it."""
+    import struct
+
+    def fixed64(field, value):
+        return grpc_mod.pb_varint_raw(field << 3 | 1) + struct.pack(
+            "<Q", value)
+
+    spans = b"".join(grpc_mod.pb_msg(2, (
+        grpc_mod.pb_bytes(1, bytes.fromhex(trace_id))
+        + grpc_mod.pb_bytes(2, (i + 1).to_bytes(8, "big"))
+        + grpc_mod.pb_str(5, name)
+        + fixed64(7, (start_s + i) * 10**9)
+        + fixed64(8, (start_s + i) * 10**9 + 1_000_000)))
+        for i, name in enumerate(names))
+    resource = grpc_mod.pb_msg(1, grpc_mod.pb_str(1, "service.name")
+                               + grpc_mod.pb_msg(2, grpc_mod.pb_str(
+                                   1, service)))
+    return grpc_mod.pb_msg(1, grpc_mod.pb_msg(1, resource)
+                           + grpc_mod.pb_msg(2, spans))
+
+
+def release_nodes(torch, nodes, servers) -> None:
+    """Stop `servers` and `nodes` and give back their device memory: each
+    node's resident columns are evicted through its store, then the
+    caching allocator's free blocks go back to the card."""
+    for server in servers:
+        server.stop()
+    for node in nodes:
+        node.stop_background_services()
+        store = node.searcher_context.resident_store
+        if store is not None:
+            for split_id in list(store.stats()["by_split"]):
+                columns = store.peek(split_id)
+                if columns is not None:   # the budget's own eviction path
+                    columns._device_array_cache.clear()
+        for client in node.clients.values():
+            node._close_client(client)
+    nodes.clear()
+    servers.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def grpc_offload_modules():
+    """The port's modules under the names `phase12_like` and
+    `check_grpc_offload` read."""
+    from types import SimpleNamespace
+
+    from quickwit_tpu_torch import serve
+    from quickwit_tpu_torch.cluster.membership import ClusterMember
+    from quickwit_tpu_torch.common.uri import Protocol, Uri
+    from quickwit_tpu_torch.index import synthetic
+    from quickwit_tpu_torch.index.reader import SplitReader
+    from quickwit_tpu_torch.metastore import (
+        FileBackedMetastore, ListSplitsQuery, SqlMetastore)
+    from quickwit_tpu_torch.models.doc_mapper import FieldType
+    from quickwit_tpu_torch.models.index_metadata import (
+        IndexConfig, IndexMetadata)
+    from quickwit_tpu_torch.models.split_metadata import (
+        SplitMetadata, SplitState)
+    from quickwit_tpu_torch.observability import metrics
+    from quickwit_tpu_torch.query import parse_query_string
+    from quickwit_tpu_torch.query.ast import Term
+    from quickwit_tpu_torch.search import models, service as svc_mod
+    from quickwit_tpu_torch.search.root import RootSearcher
+    from quickwit_tpu_torch.serve import (
+        binwire, grpc_server, http_client, otlp_proto, serializers)
+    from quickwit_tpu_torch.storage import StorageResolver
+    from quickwit_tpu_torch.storage.ram import RamStorage
+    return SimpleNamespace(
+        serve=serve, ClusterMember=ClusterMember, Protocol=Protocol,
+        Uri=Uri, SplitReader=SplitReader,
+        HDFS_MAPPER=synthetic.HDFS_MAPPER,
+        OTEL_BENCH_MAPPER=synthetic.OTEL_BENCH_MAPPER,
+        body_term=synthetic.body_term,
+        synthetic_hdfs_split=synthetic.synthetic_hdfs_split,
+        synthetic_otel_split=synthetic.synthetic_otel_split,
+        FileBackedMetastore=FileBackedMetastore,
+        ListSplitsQuery=ListSplitsQuery, SqlMetastore=SqlMetastore,
+        FieldType=FieldType, IndexConfig=IndexConfig,
+        IndexMetadata=IndexMetadata, SplitMetadata=SplitMetadata,
+        SplitState=SplitState, metrics=metrics,
+        parse_query_string=parse_query_string, Term=Term, models=models,
+        SearchRequest=models.SearchRequest, svc_mod=svc_mod,
+        RootSearcher=RootSearcher, StorageResolver=StorageResolver,
+        RamStorage=RamStorage, binwire=binwire, grpc=grpc_server,
+        http_client=http_client, otlp_proto=otlp_proto,
+        serializers=serializers)
+
+
+def phase12_like(m, hdfs_splits, hdfs_docs, otel_splits, otel_docs,
+                 flagship_aggs) -> dict:
+    """What phase 12 hands phases 15 and 16, at a size of the caller's
+    choosing: generator splits (hdfs with their doc store, seeds from
+    FANOUT_HDFS_SEED; otel from seed 0) in RAM, a file-backed metastore of
+    them, and the flagship's and c5's answers from a root over a CPU
+    node. For the CPU rehearsal and the `gpu` test of phase 16."""
+    storage = m.RamStorage(m.Uri.parse(SPLITS_URI))
+    hdfs_ids = [f"hdfs{i}" for i in range(hdfs_splits)]
+    otel_ids = [f"otel{s:02d}" for s in range(otel_splits)]
+    for i, split_id in enumerate(hdfs_ids):
+        storage.put(f"{split_id}.split", m.synthetic_hdfs_split(
+            hdfs_docs, seed=FANOUT_HDFS_SEED + i, store_docs=True))
+    for s, split_id in enumerate(otel_ids):
+        storage.put(f"{split_id}.split",
+                    m.synthetic_otel_split(otel_docs, seed=s))
+    meta_storage = m.RamStorage(m.Uri.parse(METASTORE_URI))
+    metastore = m.FileBackedMetastore(meta_storage)
+    for index_id, mapper, ids in (("hdfs-logs", m.HDFS_MAPPER, hdfs_ids),
+                                  ("otel-traces", m.OTEL_BENCH_MAPPER,
+                                   otel_ids)):
+        index_uid = f"{index_id}:01"
+        metastore.create_index(m.IndexMetadata(
+            index_uid=index_uid, index_config=m.IndexConfig(
+                index_id=index_id, index_uri=SPLITS_URI,
+                doc_mapper=mapper)))
+        metastore.stage_splits(index_uid, [split_metadata(
+            m, m.SplitReader(storage, f"{split_id}.split"), split_id,
+            index_uid, mapper) for split_id in ids])
+        metastore.publish_splits(index_uid, list(ids))
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda _uri: storage)
+    requests = {
+        "flagship": m.SearchRequest(
+            index_ids=["hdfs-logs"], max_hits=10, aggs=flagship_aggs,
+            query_ast=m.parse_query_string("severity_text:ERROR", ["body"]),
+            snippet_fields=("severity_text",)),
+        "c5_otel_64splits": m.SearchRequest(
+            index_ids=["otel-traces"], max_hits=0,
+            query_ast=m.parse_query_string("*", ["body"]),
+            aggs={"latency": {"percentiles": {
+                "field": "span_duration_micros",
+                "percents": [50, 95, 99]}}}),
+    }
+    cpu = m.svc_mod.SearchService(m.svc_mod.SearcherContext(
+        storage_resolver=resolver, device="cpu", batch_size=8))
+    root = m.RootSearcher(metastore,
+                          {"node-0": m.svc_mod.LocalSearchClient(cpu)})
+    return {"storage": storage, "meta_storage": meta_storage,
+            "requests": requests, "hdfs_ids": hdfs_ids,
+            "otel_ids": otel_ids,
+            "flagship": root.search(requests["flagship"]),
+            "c5": root.search(requests["c5_otel_64splits"])}
+
+
+def check_grpc_offload(torch, st, m, dev, label, iters, rooted,
+                       local_splits=OFFLOAD_LOCAL_SPLITS) -> dict:
+    """Phase 16: port nodes on the card over a `sqlite://` metastore
+    filled with phase 12's records and phase 11's bytes. Part A: three
+    nodes with `grpc_port=0`, the root on node 0 reaching its peers
+    through `GrpcSearchClient`; the flagship and c5 against phase 12's
+    responses; gRPC against HTTP to one peer in turns; an OTLP export
+    read back through Jaeger. Part B: node M offloads c5's cold tail to
+    workers W1 and W2, then with W2 down, then with both down; offload
+    against a node without it in turns. Returns the path's launches."""
+    storage = rooted["storage"]
+    requests = rooted["requests"]
+    hdfs_ids, otel_ids = rooted["hdfs_ids"], rooted["otel_ids"]
+    metrics = m.metrics
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda _uri: storage)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_grpc_")
+    db = os.path.join(tmp.name, "metastore.db")
+    nodes, servers = [], []
+    steps = {}
+    on_card = dev.type == "cuda"
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def launches_since(k0, l0):
+        return {"score_topk": st.score_topk.launches - k0,
+                "score_topk_lanes": st.score_topk_lanes.launches - l0}
+
+    def series(name, **labels):
+        return getattr(metrics, name).get(**labels)
+
+    def offload_marks():
+        return {key: series(name, **labels)
+                for key, (name, labels) in OFFLOAD_DELTAS.items()}
+
+    def start(node_id, **kw):
+        node = m.serve.Node(m.serve.NodeConfig(
+            node_id=node_id, rest_port=0, device=dev.type,
+            metastore_uri=f"sqlite://{db}",
+            default_index_root_uri=SPLITS_URI,
+            data_dir=os.path.join(tmp.name, node_id), wal_fsync=False,
+            **kw), storage_resolver=resolver)
+        server = m.serve.RestServer(node)
+        server.start()
+        nodes.append(node)
+        servers.append(server)
+        return node, server
+
+    try:
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        # the SQL metastore, filled through its API with phase 12's records
+        t0 = time.perf_counter()
+        source = m.FileBackedMetastore(rooted["meta_storage"])
+        sql = m.SqlMetastore(db)
+        for metadata in source.list_indexes():
+            uid = metadata.index_uid
+            records = source.list_splits(m.ListSplitsQuery(index_uids=[uid]))
+            sql.create_index(metadata)
+            sql.stage_splits(uid, [r.metadata for r in records])
+            sql.publish_splits(uid, [r.metadata.split_id for r in records])
+        def published(metastore):
+            return {metadata.index_id: len(metastore.list_splits(
+                m.ListSplitsQuery(index_uids=[metadata.index_uid],
+                                  states=[m.SplitState.PUBLISHED])))
+                for metadata in metastore.list_indexes()}
+        listed = published(sql)
+        hdfs_splits, otel_splits = ([m.models.SplitIdAndFooter(
+            r.metadata.split_id, SPLITS_URI, num_docs=r.metadata.num_docs)
+            for r in sql.list_splits(m.ListSplitsQuery(index_uids=[uid]))]
+            for uid in ("hdfs-logs:01", "otel-traces:01"))
+        del sql
+        say(f"grpc sql metastore: {json.dumps(listed)} bytes="
+            f"{os.path.getsize(db)}")
+        if listed != published(source) or listed["hdfs-logs"] != len(
+                hdfs_ids) or listed["otel-traces"] != len(otel_ids):
+            raise AssertionError(f"grpc sql metastore: {listed}")
+
+        # part A: three nodes, each a member of the others' cluster
+        trio = [start(f"grpc-{i}", grpc_port=0) for i in range(3)]
+        for node, _ in trio:
+            for peer, peer_server in trio:
+                if peer is not node:
+                    node.cluster.upsert_heartbeat(m.ClusterMember(
+                        peer.config.node_id, tuple(peer.config.roles),
+                        rest_endpoint=peer_server.endpoint,
+                        grpc_endpoint=peer._grpc_advertise()))
+        root = trio[0][0]
+        rpcs = {}
+        for peer_id, client in root.clients.items():
+            if peer_id == root.config.node_id:
+                continue
+            if type(client) is not m.grpc.GrpcSearchClient:
+                raise AssertionError(f"grpc: {peer_id} reached through "
+                                     f"{type(client).__name__}")
+            seen_rpcs = rpcs[peer_id] = {"LeafSearch": 0, "FetchDocs": 0}
+
+            def spy(path, payload, timeout_secs=None, inner=client._call,
+                    seen=seen_rpcs):
+                method = path.rsplit("/", 1)[1]
+                seen[method] = seen.get(method, 0) + 1
+                return inner(path, payload, timeout_secs=timeout_secs)
+            client._call = spy
+        steps["a_start"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        st.score_topk.launches = st.score_topk_lanes.launches = 0
+        seen = {}
+        for name, want in (("flagship", rooted["flagship"]),
+                           ("c5_otel_64splits", rooted["c5"])):
+            before = {p: dict(r) for p, r in rpcs.items()}
+            k0, l0 = counts()
+            got = root.root_searcher.search(requests[name])
+            same_search(got, want, f"grpc {name} vs phase 12's root")
+            seen[name] = {**launches_since(k0, l0), "rpcs": {
+                p: {k: v - before[p].get(k, 0) for k, v in r.items()}
+                for p, r in rpcs.items()}}
+            say(f"grpc A {name}: num_hits={got.num_hits} hits="
+                f"{len(got.hits)} {json.dumps(seen[name])} "
+                f"equal_to_phase_12=True")
+        steps["a_searches"] = time.perf_counter() - t0
+        c5_leaf_rpcs = sum(r["LeafSearch"] for r in
+                           seen["c5_otel_64splits"]["rpcs"].values())
+        if (any(r["LeafSearch"] < 1 for r in
+                seen["c5_otel_64splits"]["rpcs"].values())
+                or c5_leaf_rpcs != len(rpcs)):
+            raise AssertionError(f"grpc A rpcs: {seen}")
+
+        # gRPC against HTTP to one peer, in turns: the same leaf request
+        peer, peer_server = trio[1]
+        leaf_request = m.models.LeafSearchRequest(
+            search_request=requests["flagship"], index_uid="hdfs-logs:01",
+            doc_mapping=m.HDFS_MAPPER.to_dict(),
+            splits=hdfs_splits)
+        grpc_client = m.grpc.GrpcSearchClient(peer._grpc_advertise(),
+                                              peer_server.endpoint)
+        http_client = m.http_client.HttpSearchClient(peer_server.endpoint)
+        try:
+            first = aside(grpc_client.leaf_search, leaf_request)
+            again = aside(http_client.leaf_search, leaf_request)
+            if (first.num_hits != again.num_hits
+                    or hit_tuples(first.partial_hits)
+                    != hit_tuples(again.partial_hits)):
+                raise AssertionError("grpc A: gRPC and HTTP leaf answers "
+                                     "differ")
+            grpc_walls, http_walls = [], []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                aside(grpc_client.leaf_search, leaf_request)
+                t1 = time.perf_counter()
+                aside(http_client.leaf_search, leaf_request)
+                grpc_walls.append((t1 - t0) * 1e3)
+                http_walls.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            grpc_client.close()
+        sizes = {
+            "request_binwire": len(m.binwire.encode(leaf_request.to_dict())),
+            "request_json": len(json.dumps(leaf_request.to_dict()).encode()),
+            "response_binwire": len(m.binwire.encode(
+                m.serializers.leaf_response_to_wire(first))),
+            "response_json": len(json.dumps(
+                m.serializers.leaf_response_to_dict(first)).encode())}
+        say(f"[{label}] grpc A timing leaf flagship (8 hdfs splits, warm "
+            f"on the peer; the batch route runs its program on every "
+            f"call): grpc_p50_ms="
+            f"{pct(grpc_walls, 0.5):.4f} grpc_p90_ms="
+            f"{pct(grpc_walls, 0.9):.4f} http_p50_ms="
+            f"{pct(http_walls, 0.5):.4f} http_p90_ms="
+            f"{pct(http_walls, 0.9):.4f} iters={iters} payload_bytes="
+            + json.dumps(sizes))
+
+        # an OTLP export over gRPC, read back through Jaeger GetTrace
+        t0 = time.perf_counter()
+        trace_id = "0f1e2d3c4b5a69788796a5b4c3d2e1f0"
+        names = ["GET /search", "root_search", "leaf_search"]
+        channel = m.grpc.GrpcChannel("127.0.0.1", root.grpc_server.port)
+        try:
+            _, status, message = channel.call(
+                "/opentelemetry.proto.collector.trace.v1.TraceService/"
+                "Export", otlp_trace_request(m.grpc, trace_id, "chip-smoke",
+                                             names, 1_700_000_000))
+            if status != 0:
+                raise AssertionError(f"grpc A OTLP export: {message}")
+            chunks, status, message = channel.call(
+                "/jaeger.storage.v1.SpanReaderPlugin/GetTrace",
+                m.grpc.pb_bytes(1, bytes.fromhex(trace_id)))
+        finally:
+            channel.close()
+        spans = [bytes(value) for chunk in chunks for field, wire, value
+                 in m.otlp_proto.iter_fields(memoryview(chunk))
+                 if field == 1 and wire == 2]
+        read_names = sorted(
+            bytes(value).decode() for span in spans for field, wire, value
+            in m.otlp_proto.iter_fields(memoryview(span))
+            if field == 3 and wire == 2)
+        say(f"grpc A otlp: exported={len(names)} status={status} "
+            f"read_back={len(spans)} names={json.dumps(read_names)} "
+            f"seconds={time.perf_counter() - t0:.3f}")
+        if status != 0 or read_names != sorted(names):
+            raise AssertionError(f"grpc A jaeger GetTrace: {message} "
+                                 f"{read_names}")
+        path_a = {"score_topk": st.score_topk.launches,
+                  "score_topk_lanes": st.score_topk_lanes.launches}
+
+        # part B: M offloads to W1 and W2; part A's nodes are gone first
+        t0 = time.perf_counter()
+        release_nodes(torch, nodes, servers)
+        del trio, root, peer, peer_server
+        gc.collect()
+        workers = [start(f"offload-w{i}", roles=("searcher",))
+                   for i in (1, 2)]
+        endpoints = [server.endpoint for _, server in workers]
+        offload = {"endpoints": endpoints, "max_local_splits": local_splits}
+        steps["b_start"] = time.perf_counter() - t0
+        c5 = dataclasses.replace(requests["c5_otel_64splits"], profile=True)
+        runs = {}
+
+        def offload_run(name, node_id):
+            """c5 through a fresh M (the same config): its leaf and agg
+            caches are empty and it cuts the same 16 local splits."""
+            node, server = start(node_id, offload=dict(offload))
+            marks = offload_marks()
+            k0, l0 = counts()
+            t0 = time.perf_counter()
+            got = node.root_searcher.search(c5)
+            wall = time.perf_counter() - t0
+            same_search(got, rooted["c5"], f"offload {name} vs phase 12's")
+            deltas = {key: value - marks[key]
+                      for key, value in offload_marks().items()}
+            counters = {k: v for k, v in got.profile["counters"].items()
+                        if k.startswith("offload_")
+                        or k == "num_splits_offloaded"}
+            runs[name] = {**launches_since(k0, l0), **deltas,
+                          "profile": counters, "wall_s": round(wall, 3)}
+            say(f"offload B {name}: num_hits={got.num_hits} "
+                f"{json.dumps(runs[name])} equal_to_phase_12=True")
+            release_nodes(torch, [node], [server])
+            return runs[name]
+
+        remote_all = len(otel_ids) - local_splits
+        both = offload_run("two_workers", "offload-m")
+        if (both["remote"] != remote_all
+                or both["fallback_local"] != 0
+                or both["profile"].get("num_splits_offloaded")
+                != remote_all):
+            raise AssertionError(f"offload B two workers: {both}")
+        steps["b_two_workers"] = time.perf_counter() - t0
+
+        # offload against a node without it, in turns: fresh nodes, each
+        # call a distinct percentile so no node answers from a cache
+        t0 = time.perf_counter()
+        timed_m, _ = start("offload-t", offload=dict(offload))
+        plain, _ = start("offload-off")
+
+        # a scored leaf request over the 64 otel splits (no doc store, so
+        # no fetch phase): M's batches and the workers' launch
+        # `score_topk_lanes`
+        scored = m.models.LeafSearchRequest(
+            search_request=m.SearchRequest(
+                index_ids=["otel-traces"],
+                query_ast=m.Term("service_name", "cart"), max_hits=10),
+            index_uid="otel-traces:01",
+            doc_mapping=m.OTEL_BENCH_MAPPER.to_dict(), splits=otel_splits)
+        marks = offload_marks()
+        k0, l0 = counts()
+        got = timed_m.search_service.leaf_search(scored)
+        runs["scored"] = {**launches_since(k0, l0), **{
+            key: value - marks[key]
+            for key, value in offload_marks().items()}}
+        want = aside(plain.search_service.leaf_search, scored)
+        say(f"offload B scored leaf service_name:cart top-10: num_hits="
+            f"{got.num_hits} offloaded="
+            f"{got.resource_stats.get('num_splits_offloaded')} "
+            f"{json.dumps(runs['scored'])} equal_to_no_offload="
+            f"{hit_tuples(got.partial_hits) == hit_tuples(want.partial_hits)}")
+        if (got.num_hits != want.num_hits or got.failed_splits
+                or hit_tuples(got.partial_hits)
+                != hit_tuples(want.partial_hits)
+                or runs["scored"]["remote"] != remote_all
+                or (on_card and runs["scored"]["score_topk_lanes"] < 1)):
+            raise AssertionError(f"offload B scored: {runs['scored']}")
+
+        def c5_variant(i):
+            aggs = {"latency": {"percentiles": {
+                "field": "span_duration_micros",
+                "percents": [50, 95, 99 - i / 1000]}}}
+            return dataclasses.replace(requests["c5_otel_64splits"],
+                                       aggs=aggs)
+
+        remote0 = series("OFFLOAD_SPLITS_TOTAL", outcome="remote")
+        with_walls, without_walls = [], []
+        for i in range(-1, iters):
+            req = c5_variant(i)
+            t1 = time.perf_counter()
+            got = aside(timed_m.root_searcher.search, req)
+            t2 = time.perf_counter()
+            want = aside(plain.root_searcher.search, req)
+            t3 = time.perf_counter()
+            same_search(got, want, f"offload B timing call {i}")
+            if i >= 0:
+                with_walls.append((t2 - t1) * 1e3)
+                without_walls.append((t3 - t2) * 1e3)
+        remote = series("OFFLOAD_SPLITS_TOTAL", outcome="remote") - remote0
+        say(f"[{label}] offload B timing c5 (64 otel splits, {local_splits}"
+            f" local + {remote_all} on 2 workers): offload_p50_ms="
+            f"{pct(with_walls, 0.5):.4f} offload_p90_ms="
+            f"{pct(with_walls, 0.9):.4f} local_p50_ms="
+            f"{pct(without_walls, 0.5):.4f} local_p90_ms="
+            f"{pct(without_walls, 0.9):.4f} iters={iters} remote_splits="
+            f"{remote}")
+        if remote != remote_all * (iters + 1):
+            raise AssertionError(f"offload B timing offloaded {remote}")
+        release_nodes(torch, [timed_m, plain], [])
+        del timed_m, plain
+        steps["b_timing"] = time.perf_counter() - t0
+
+        # W2's listener stops: its tasks retry on W1
+        t0 = time.perf_counter()
+        workers[1][1].stop()
+        one = offload_run("w2_stopped", "offload-m2")
+        if (one["retries"] < 1
+                or one["fallback_local"] != 0
+                or one["remote"] != remote_all):
+            raise AssertionError(f"offload B without W2: {one}")
+        # W1's too: every offloaded split runs on M's card
+        workers[0][1].stop()
+        none = offload_run("no_worker", "offload-m3")
+        if (none["fallback_local"] != remote_all
+                or none["remote"] != 0):
+            raise AssertionError(f"offload B without workers: {none}")
+        steps["b_faults"] = time.perf_counter() - t0
+        path_b = {key: sum(run[key] for run in runs.values())
+                  for key in ("score_topk", "score_topk_lanes")}
+        path = {key: path_a[key] + path_b[key] for key in path_a}
+        say(f"grpc launches: {json.dumps(path)} part A "
+            f"{json.dumps(path_a)} part B {json.dumps(path_b)}")
+        say(f"[{label}] grpc seconds: "
+            + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+        return {"launches": path}
+    finally:
+        release_nodes(torch, nodes, servers)
+        tmp.cleanup()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -5110,6 +5654,13 @@ def main(argv=None) -> int:
         requests["flagship"].aggs)
     say(f"serve phase_s={time.perf_counter() - t0:.3f}")
 
+    # 16. the gRPC plane, the SQL metastore and the offload pool, with the
+    # counters zeroed again ------------------------------------------------
+    t0 = time.perf_counter()
+    gridded = check_grpc_offload(torch, st, grpc_offload_modules(), dev,
+                                 label, args.iters, rooted)
+    say(f"grpc phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -5122,8 +5673,9 @@ def main(argv=None) -> int:
         # that runs a program), the chunked phase's scans before its
         # timing (one per posting chunk of a score-sorted scan) and the
         # root phase's one-split nodes (none: its nodes batch), the write
-        # phase's searches over one merged split and the sources and serve
-        # phases' (none: their splits batch)
+        # phase's searches over one merged split and the sources, serve and
+        # gRPC phases' (a node's one-split leaf request, where placement
+        # gives a node one split)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
@@ -5133,7 +5685,8 @@ def main(argv=None) -> int:
                      + rooted["launches"]["score_topk"]
                      + written["launches"]["score_topk"]
                      + sourced["launches"]["score_topk"]
-                     + served["launches"]["score_topk"]),
+                     + served["launches"]["score_topk"]
+                     + gridded["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5153,13 +5706,15 @@ def main(argv=None) -> int:
         # sources phase's (its flagship and c2 over each index) and the
         # serve phase's part B (its flagship and concurrent searches; part
         # A's node runs in a subprocess, whose counts this process cannot
-        # read)
+        # read) and the gRPC phase's (the flagship's batches on the three
+        # nodes, the scored otel request's on M and its offload workers)
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
                      + rooted["launches"]["score_topk_lanes"]
                      + written["launches"]["score_topk_lanes"]
                      + sourced["launches"]["score_topk_lanes"]
-                     + served["launches"]["score_topk_lanes"]),
+                     + served["launches"]["score_topk_lanes"]
+                     + gridded["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",

@@ -5,7 +5,7 @@ a typed client over the REST API for applications and tooling (the CLI
 and integration tests use the same surface). Stdlib-only, persistent
 connection, explicit errors, optional TLS with CA pinning.
 
-    from quickwit_tpu.client import QuickwitClient
+    from quickwit_tpu_torch.client import QuickwitClient
 
     qw = QuickwitClient("127.0.0.1:7280")
     qw.create_index({"index_id": "logs", "doc_mapping": {...}})

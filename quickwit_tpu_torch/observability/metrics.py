@@ -277,6 +277,45 @@ TENANT_ADMISSION_WAIT = METRICS.histogram(
     "qw_tenant_admission_wait_seconds",
     "HBM admission queue wait per tenant")
 
+# --- elastic leaf-search offload pool (offload/) ----------------------------
+# One attempt = one leaf-search RPC to one worker. outcome is a small fixed
+# enum (ok | error | backpressure | discarded); per-worker breakdowns live
+# in WorkerPool.snapshot(), not in labels, so cardinality stays bounded
+# however large the elastic fleet gets.
+OFFLOAD_DISPATCHES_TOTAL = METRICS.counter(
+    "qw_offload_dispatches_total",
+    "Leaf-search dispatch attempts to offload workers, by outcome")
+OFFLOAD_RETRIES_TOTAL = METRICS.counter(
+    "qw_offload_retries_total",
+    "Offload tasks re-dispatched to the next rendezvous-ranked worker "
+    "after a failure")
+OFFLOAD_HEDGES_TOTAL = METRICS.counter(
+    "qw_offload_hedges_total",
+    "Hedged (backup) dispatches launched against straggler workers, "
+    "by outcome (won = the hedge's response was used)")
+OFFLOAD_STEALS_TOTAL = METRICS.counter(
+    "qw_offload_steals_total",
+    "Queued offload tasks stolen from a busy worker's queue by an idle "
+    "worker")
+OFFLOAD_SPLITS_TOTAL = METRICS.counter(
+    "qw_offload_splits_total",
+    "Splits routed through the offload pool, by final outcome "
+    "(remote = served by a worker, fallback_local = returned to the "
+    "local execution path)")
+OFFLOAD_POOL_WORKERS = METRICS.gauge(
+    "qw_offload_pool_workers",
+    "Registered offload workers by health state "
+    "(healthy | suspect | ejected)")
+OFFLOAD_QUEUE_DEPTH = METRICS.gauge(
+    "qw_offload_queue_depth",
+    "Offloaded splits currently queued or in flight on the worker pool")
+OFFLOAD_DISPATCH_SECONDS = METRICS.histogram(
+    "qw_offload_dispatch_seconds",
+    "Latency of successful offload dispatch attempts (one worker RPC)")
+OFFLOAD_AUTOSCALE_TOTAL = METRICS.counter(
+    "qw_offload_autoscale_events_total",
+    "Offload pool autoscaler resize events, by direction (up | down)")
+
 # --- hierarchical leaf caches (search/cache.py, search/mask_cache.py,
 #     search/agg_cache.py, search/predicate_cache.py) -------------------------
 LEAF_CACHE_HITS_TOTAL = METRICS.counter(

@@ -16,7 +16,8 @@ each chunk through the same `execute_plan`. With a `QueryBatcher`
 (`search/batcher.py`), concurrent queries on one split share one dispatch:
 shape-compatible distinct queries stack into one lane group, or, under
 `QW_DISABLE_QBATCH`, same-array queries ride a convoy. The multi-split
-batch and mesh route and leaf offload come with later slices.
+batch is `parallel/fanout.py`'s, and leaf offload is the service's
+(`search/service.py`).
 `search_after` markers (numeric and string, one or two keys), the top-k
 threshold pushdown, a cached predicate mask (`mask_override`) and a subset
 of the aggregations (`aggs_override`) reach the device program through

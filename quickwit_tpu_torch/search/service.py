@@ -25,12 +25,15 @@ by split. The batch stages each split through the per-split route's own
 warmup, so both routes share one resident copy of each split.
 `fetch_docs` reads the hits' documents (and their snippets) on the host for
 the root's second phase; `LocalSearchClient` is the in-process transport
-the root (search/root.py) calls. The mesh route and leaf offload come with
-later slices.
+the root (search/root.py) calls. A request with more splits than
+`offload_max_local_splits` sends its cold tail to the context's offload
+pool (offload/), whose workers run it on their own devices; what they do
+not serve runs here. There is no mesh route: a context serves one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -106,6 +109,10 @@ class SearcherContext:
                  leaf_cache_bytes: int = 64 << 20,
                  batch_size: int = 8,
                  prefetch: bool = True,
+                 offload: Optional[dict] = None,
+                 offload_endpoint: Optional[str] = None,
+                 offload_max_local_splits: int = 16,
+                 offload_client_factory=None,
                  split_cache=None,
                  enable_threshold_pruning: bool = True,
                  resident_columns: bool = True,
@@ -179,6 +186,92 @@ class SearcherContext:
         self._readers: OrderedDict[str, SplitReader] = OrderedDict()
         self._max_open_splits = max_open_splits
         self._lock = sync.lock("SearchService._lock")
+        # elastic leaf-search offload (reference: lambda leaf-search
+        # offload, quickwit-lambda-client/src/invoker.rs:129 + the
+        # scheduling split at leaf.rs:1658,1828): cold splits beyond
+        # `max_local_splits` per leaf request fan out over an elastic
+        # worker pool (offload/) — any processes serving the
+        # internal leaf-search protocol (peer nodes, a FaaS worker
+        # fleet, ...). The legacy single-endpoint knobs migrate into a
+        # pool-of-one; `offload=None` with no endpoint keeps the subsystem
+        # unimported and the leaf path byte-identical to the pre-pool
+        # behavior.
+        if offload is None and offload_endpoint:
+            offload = {"endpoints": [offload_endpoint]}
+        self.offload = offload
+        self.offload_endpoint = offload_endpoint
+        self.offload_max_local_splits = (
+            int(offload.get("max_local_splits", offload_max_local_splits))
+            if offload is not None else offload_max_local_splits)
+        self._offload_client_factory = offload_client_factory
+        self._offload_pool = None
+        self._offload_dispatcher = None
+
+    def offload_dispatcher(self):
+        """The pool dispatcher, built lazily on first offloading leaf
+        request; None when no pool is configured."""
+        if self.offload is None:
+            return None
+        with self._lock:
+            if self._offload_dispatcher is None:
+                from ..offload import (
+                    Autoscaler, OffloadDispatcher, WorkerPool,
+                )
+                config = self.offload
+                pool = WorkerPool(
+                    suspect_after=int(config.get("suspect_after", 1)),
+                    eject_after=int(config.get("eject_after", 3)),
+                    readmit_backoff_secs=float(
+                        config.get("readmit_backoff_secs", 0.5)),
+                    readmit_backoff_max_secs=float(
+                        config.get("readmit_backoff_max_secs", 30.0)))
+                for endpoint in config.get("endpoints", ()):
+                    if self._offload_client_factory is not None:
+                        client = self._offload_client_factory(endpoint)
+                    else:
+                        from ..serve.http_client import HttpSearchClient
+                        client = HttpSearchClient(endpoint)
+                    pool.add_worker(endpoint, client)
+                autoscaler = None
+                launcher = config.get("launcher")
+                if launcher is not None:
+                    autoscale = config.get("autoscale") or {}
+                    autoscaler = Autoscaler(
+                        pool, launcher,
+                        min_workers=int(autoscale.get("min_workers", 1)),
+                        max_workers=int(autoscale.get("max_workers", 8)),
+                        queue_per_worker=int(
+                            autoscale.get("queue_per_worker", 16)),
+                        scale_down_cooldown_secs=float(autoscale.get(
+                            "scale_down_cooldown_secs", 10.0)))
+                self._offload_pool = pool
+                self._offload_dispatcher = OffloadDispatcher(
+                    pool,
+                    task_splits=int(config.get("task_splits", 8)),
+                    max_inflight_per_worker=int(
+                        config.get("max_inflight_per_worker", 1)),
+                    hedge_min_delay_secs=float(
+                        config.get("hedge_min_delay_secs", 0.05)),
+                    hedge_max_delay_secs=float(
+                        config.get("hedge_max_delay_secs", 5.0)),
+                    injector=config.get("fault_injector"),
+                    autoscaler=autoscaler)
+            return self._offload_dispatcher
+
+    def offload_pool(self):
+        """The live WorkerPool (builds the dispatcher if needed); None
+        when offload is unconfigured."""
+        if self.offload_dispatcher() is None:
+            return None
+        return self._offload_pool
+
+    def has_warm_reader(self, split: SplitIdAndFooter) -> bool:
+        """True when this split's reader (and its byte-range/device
+        caches) is already resident — the 'warm split' signal the offload
+        scheduling uses (the reference offloads splits absent from the
+        local split cache)."""
+        with self._lock:
+            return f"{split.storage_uri}/{split.split_id}" in self._readers
 
     def peek_reader(self, split: SplitIdAndFooter) -> Optional[SplitReader]:
         """Warm reader or None — NEVER opens a cold split. Threshold
@@ -337,7 +430,8 @@ class SearchService:
         if (prune_ctx.mode is not None and threshold.get() is not None
                 and not search_request.count_hits_exact):
             # wire-seeded threshold (root retry round 2): drop provably
-            # beaten splits before any of them is opened
+            # beaten splits BEFORE the offload cut, so pruned splits never
+            # count against the local budget or ship to a worker
             still_pending: list[SplitIdAndFooter] = []
             for split in pending:
                 best = self._split_bound(prune_ctx, split)
@@ -350,6 +444,81 @@ class SearchService:
                 else:
                     still_pending.append(split)
             pending = still_pending
+
+        offload_future = None
+        offload_result: dict[str, Any] = {}
+        offloaded: list[SplitIdAndFooter] = []
+        offload_dispatcher = self.context.offload_dispatcher()
+        if (offload_dispatcher is not None
+                and len(pending) > self.context.offload_max_local_splits):
+            # scheduling split (reference schedule_search_tasks,
+            # leaf.rs:1828): warm splits stay local; the coldest tail
+            # beyond the local budget fans out over the worker pool
+            # CONCURRENTLY with the local loop
+            warm = [s for s in pending if self.context.has_warm_reader(s)]
+            cold = [s for s in pending
+                    if not self.context.has_warm_reader(s)]
+            budget = max(self.context.offload_max_local_splits, len(warm))
+            local = (warm + cold)[:budget]
+            offloaded = (warm + cold)[budget:]
+            if offloaded:
+                pending = local
+                offload_tenant = current_tenant()
+                remote_request = LeafSearchRequest(
+                    search_request=search_request,
+                    index_uid=request.index_uid,
+                    doc_mapping=request.doc_mapping, splits=offloaded,
+                    deadline_millis=deadline.timeout_millis(),
+                    # the offload workers enforce the same tenant class
+                    tenant=(offload_tenant.to_wire()
+                            if offload_tenant is not None else None),
+                    # seeded at dispatch time inside _invoke (below): the
+                    # threshold is monotone, so the LATEST value prunes
+                    # strictly more on the workers than a capture-time copy
+                    sort_value_threshold=None)
+                result_box: dict[str, Any] = {}
+                # the dispatch thread has an empty thread-local span stack:
+                # capture the traceparent HERE so each worker RPC's
+                # injected header joins this query's trace (same capture
+                # as root _fan_out)
+                offload_tp = TRACER.current_traceparent()
+
+                def _invoke(box=result_box, rr=remote_request,
+                            tp=offload_tp):
+                    try:
+                        # read the shared ThresholdBox from the dispatch
+                        # thread, NOT at capture time: the local execute
+                        # loop keeps raising it concurrently
+                        if prune_ctx.mode is not None:
+                            rr = dataclasses.replace(
+                                rr, sort_value_threshold=threshold.get())
+                        with TRACER.span(
+                                "leaf_offload",
+                                {"num_splits": len(rr.splits)},
+                                remote_parent=tp):
+                            box["outcome"] = offload_dispatcher.dispatch(
+                                rr, deadline=deadline, traceparent=tp)
+                    except (OverloadShed, TenantRateLimited) as exc:
+                        # typed backpressure from a worker: this query is
+                        # rejected as a WHOLE (HTTP 429), NOT retried
+                        # locally — a local retry would defeat the remote
+                        # tenant limits
+                        box["backpressure"] = exc
+                    # qwlint: disable-next-line=QW004 - only generic pool
+                    # failure lands here (typed backpressure is re-raised
+                    # above); the offloaded splits fall back to LOCAL
+                    # execution below, so nothing is swallowed
+                    except Exception as exc:  # noqa: BLE001 - fallback below
+                        box["error"] = exc
+
+                # run_with_context: the dispatch thread (and the worker
+                # attempt threads it spawns) must see the query's
+                # deadline, tenant and profile
+                offload_future = sync.thread(
+                    target=run_with_context(_invoke),
+                    name="leaf-offload", daemon=True)
+                offload_future.start()
+                offload_result = result_box
 
         batch_size = self.context.batch_size
         groups = [pending[b: b + batch_size]
@@ -398,6 +567,67 @@ class SearchService:
             # publish the (possibly higher) Kth value for the next groups
             threshold.update(collector.sort_value_threshold())
 
+        num_offloaded = 0
+        if offload_future is not None:
+            offload_future.join(
+                timeout=deadline.clamp(self._OFFLOAD_TIMEOUT_SECS))
+            backpressure = offload_result.get("backpressure")
+            if backpressure is not None:
+                # a worker said 429 for this tenant/node: surface the SAME
+                # typed error so serve/rest.py renders a real 429 instead
+                # of silently re-running the splits locally (which would
+                # bypass the remote admission decision)
+                raise backpressure
+            outcome = offload_result.get("outcome")
+            leftovers: list[SplitIdAndFooter] = []
+            if outcome is not None:
+                for remote in outcome.responses:
+                    collector.add_leaf_response(remote)
+                    if remote.profile is not None:
+                        remote_profile = current_profile()
+                        if remote_profile is not None:
+                            remote_profile.add_child(remote.profile)
+                leftovers = list(outcome.unserved)
+                num_offloaded = len(offloaded) - len(leftovers)
+                stats_profile = current_profile()
+                if stats_profile is not None:
+                    for stat_key, value in outcome.stats.items():
+                        if value:
+                            stats_profile.add(f"offload_{stat_key}", value)
+            else:
+                leftovers = list(offloaded)
+            if leftovers:
+                # pool failed / timed out / left splits unserved: the
+                # splits still belong to this request — run them locally
+                # (reference invoker falls back the same way)
+                _warn_split_failure(
+                    "offload", leftovers[0].split_id,
+                    offload_result.get(
+                        "error",
+                        "unserved" if outcome is not None else "timeout"))
+                for group in [leftovers[b: b + batch_size]
+                              for b in range(0, len(leftovers), batch_size)]:
+                    if deadline.expired:
+                        SEARCH_SHED_TOTAL.inc(stage="offload_fallback")
+                        shed_profile = current_profile()
+                        if shed_profile is not None:
+                            shed_profile.mark_partial(
+                                "shed: offload fallback")
+                        for split in group:
+                            collector.failed_splits.append(SplitSearchError(
+                                split_id=split.split_id,
+                                error="deadline exceeded before offloaded "
+                                      "split ran locally",
+                                retryable=True))
+                        continue
+                    prepared = self._prepare_group(group, doc_mapper,
+                                                   search_request, prune_ctx,
+                                                   threshold)
+                    self._execute_group(prepared, doc_mapper, search_request,
+                                        collector, prune_ctx, threshold,
+                                        prune_stats)
+                    threshold.update(collector.sort_value_threshold())
+
         response = collector.to_leaf_response()
         response.num_attempted_splits = len(splits)
         # num_splits_skipped predates the threshold subsystem and stays as
@@ -409,6 +639,8 @@ class SearchService:
             prune_stats["downgraded"]
         response.resource_stats["num_splits_pruned_by_predicate_cache"] = \
             num_pruned_by_predicate
+        if num_offloaded:
+            response.resource_stats["num_splits_offloaded"] = num_offloaded
         profile = current_profile()
         if profile is not None:
             # pruning decisions land in the waterfall's counters; the
@@ -421,6 +653,8 @@ class SearchService:
                 profile.set_counter("topk_prune_threshold",
                                     float(final_threshold))
         return response
+
+    _OFFLOAD_TIMEOUT_SECS = 30.0
 
     @staticmethod
     def _count_from_metadata(request: SearchRequest,

@@ -3,15 +3,16 @@
 Role of the reference's `serve_quickwit` (`quickwit-serve/src/lib.rs:557`):
 instantiate the services a node's roles require — searcher, indexer,
 metastore, janitor — over a shared storage resolver and cluster membership,
-and wire remote clients (HTTP) for peers. A node runs any subset of roles
-(`lib.rs:566-700`); single-process all-roles is the default.
+and wire remote clients (gRPC or HTTP) for peers. A node runs any subset
+of roles (`lib.rs:566-700`); single-process all-roles is the default.
 
-Counterpart of the JAX package's `serve/node.py`. The node searches on
-`NodeConfig.device` (default `cuda`): its `SearcherContext` and the
-janitor's delete probes run there. What later slices bring is refused in
-`Node.__init__`, not skipped: a gRPC listener (`grpc_port`), the offload
-pool (`offload`, `offload_endpoint`) and the SQL metastore (`sqlite://`).
-Until the gRPC plane lands every peer is reached over JSON/HTTP.
+Counterpart of the JAX package's `serve/node.py`, taking the same
+`NodeConfig`. The node searches on `NodeConfig.device` (default `cuda`):
+its `SearcherContext`, the offload fallback and the janitor's delete probes
+run there. With `grpc_port` it serves the gRPC plane (`grpc_server.py`),
+and peers that advertise one are reached over it; `offload` /
+`offload_endpoint` give its leaf searches an offload pool (`offload/`),
+and a `sqlite://<path>` metastore URI opens the SQL metastore.
 """
 
 from __future__ import annotations
@@ -397,24 +398,6 @@ class IndexService:
         return removed
 
 
-def _refuse_unported(config: NodeConfig) -> None:
-    """Options whose modules later slices of the port bring: each raises,
-    naming the module and the ROADMAP item, so that no node silently runs
-    without what its config asks for."""
-    if config.grpc_port is not None:
-        raise ValueError(
-            "grpc_port: the gRPC plane (serve/grpc_server.py) is not "
-            "ported yet (ROADMAP item 12b)")
-    if config.offload is not None or config.offload_endpoint is not None:
-        raise ValueError(
-            "offload/offload_endpoint: the offload pool (offload/*) is "
-            "not ported yet (ROADMAP item 12b)")
-    if config.metastore_uri.startswith("sqlite://"):
-        raise ValueError(
-            "sqlite:// metastore: the SQL metastore (metastore/sql.py) is "
-            "not ported yet (ROADMAP item 14)")
-
-
 def _parse_period(period: str) -> int:
     period = period.strip()
     units = {"seconds": 1, "minutes": 60, "hours": 3600, "days": 86400,
@@ -431,7 +414,6 @@ class Node:
 
     def __init__(self, config: NodeConfig,
                  storage_resolver: Optional[StorageResolver] = None):
-        _refuse_unported(config)
         resolve_device(config.device)   # raise before any thread starts
         self.config = config
         if config.tenancy is not None:
@@ -441,8 +423,15 @@ class Node:
             from ..tenancy import configure_tenancy
             configure_tenancy(config.tenancy)
         self.storage_resolver = storage_resolver or StorageResolver.default()
-        self.metastore: Metastore = FileBackedMetastore(
-            self.storage_resolver.resolve(config.metastore_uri))
+        if config.metastore_uri.startswith("sqlite://"):
+            # SQL backend (reference: PostgresqlMetastore): transactional
+            # publish on a database instead of object-store CAS
+            from ..metastore.sql import SqlMetastore
+            self.metastore: Metastore = SqlMetastore(
+                config.metastore_uri[len("sqlite://"):])
+        else:
+            self.metastore = FileBackedMetastore(
+                self.storage_resolver.resolve(config.metastore_uri))
         self.cluster = Cluster(
             config.node_id, config.roles,
             rest_endpoint=f"{config.rest_host}:{config.rest_port}")
@@ -455,8 +444,11 @@ class Node:
                 max_splits=config.split_cache_max_splits)
             self.split_cache.start()
         self.searcher_context = SearcherContext(
-            self.storage_resolver, split_cache=self.split_cache,
-            device=config.device)
+            self.storage_resolver,
+            offload=config.offload,
+            offload_endpoint=config.offload_endpoint,
+            offload_max_local_splits=config.offload_max_local_splits,
+            split_cache=self.split_cache, device=config.device)
         self.search_service = SearchService(self.searcher_context, config.node_id)
         self.index_service = IndexService(self.metastore, self.storage_resolver,
                                           config.default_index_root_uri)
@@ -512,7 +504,12 @@ class Node:
         self.scroll_store = ScrollStore()
         from .otel import OtelService
         self.otel = OtelService(self)
-        self.grpc_server = None   # the gRPC plane is not ported yet
+        self.grpc_server = None
+        if config.grpc_port is not None:
+            from .grpc_server import GrpcServer
+            self.grpc_server = GrpcServer(
+                self, host=config.rest_host, port=config.grpc_port,
+                ssl_context=config.server_ssl_context(alpn=["h2"]))
         # standalone compactor role (reference quickwit-compaction):
         # planner + bounded supervisor; when any alive compactor exists,
         # indexers stop running merges themselves
@@ -576,10 +573,15 @@ class Node:
         return f"{self.config.rest_host}:{self.grpc_server.port}"
 
     def _make_peer_client(self, member: ClusterMember):
-        """Search client for one peer: JSON/HTTP, with the cluster's TLS
-        settings. The JAX node takes the gRPC plane when the peer
-        advertises it; that plane is not ported yet, so every peer, one
-        that advertises gRPC included, is reached over HTTP."""
+        """Search client for one peer: the gRPC plane (binary payloads on a
+        persistent HTTP/2 connection — the reference's codegen'd tonic
+        client role) when the peer advertises it, JSON/HTTP otherwise.
+        Under TLS both planes carry the cluster's TLS settings."""
+        if member.grpc_endpoint:
+            from .grpc_server import GrpcSearchClient
+            return GrpcSearchClient(member.grpc_endpoint,
+                                    member.rest_endpoint,
+                                    **self.config.client_tls_kwargs())
         from .http_client import HttpSearchClient
         return HttpSearchClient(member.rest_endpoint,
                                 **self.config.client_tls_kwargs())
@@ -1516,6 +1518,13 @@ class Node:
         if getattr(self, "_bg_stop", None) is not None:
             return
         self._ensure_span_exporter()
+        if self.grpc_server is None and self.config.grpc_port is not None:
+            # stop/start cycles recreate the listener (stop tears it down)
+            from .grpc_server import GrpcServer
+            self.grpc_server = GrpcServer(
+                self, host=self.config.rest_host,
+                port=self.config.grpc_port,
+                ssl_context=self.config.server_ssl_context(alpn=["h2"]))
         # qwlint: disable-next-line=QW008 - serve-layer transport
         # infrastructure (sockets, real IO) outside the DST-raced path; gating
         # it would block the token on real IO

@@ -13,15 +13,13 @@ observations must be equal across the packages. The RNG and the uuids
 that name indexes are seeded per package; the convergence scenarios run
 on a `FakeClock`, as the JAX file does, the others on the real clock.
 
-Then the refusals: what later slices of the port bring raises in
-`Node.__init__` (`grpc_port`, `offload`, `offload_endpoint`, a
-`sqlite://` metastore) or answers 501 (`POST /api/v1/_sql`), naming the
-missing module. Each case is replaced by the scenarios of its module
-when that module lands.
+Then the options a port node once refused: `grpc_port`, `offload`,
+`offload_endpoint` and a `sqlite://` metastore each build a node that
+serves, and peers that advertise gRPC are reached over it. What is still
+unported answers 501 (`POST /api/v1/_sql`), naming the missing module.
 """
 
 import json
-import threading
 
 import pytest
 
@@ -721,25 +719,86 @@ def test_stale_leader_rejoin_demotes_via_registry(tmp_path):
         True, "leader", True, "replica", 5, []]
 
 
-# --- what later slices bring is refused ---------------------------------------
+# --- the options a port node once refused ------------------------------------
 
 PORT = "quickwit_tpu_torch"
 
 
-@pytest.mark.parametrize("config,module", [
-    ({"grpc_port": 0}, "serve/grpc_server.py"),
-    ({"offload": {"endpoints": ["127.0.0.1:1"]}}, "offload/"),
-    ({"offload_endpoint": "127.0.0.1:1"}, "offload/"),
-    ({"metastore_uri": "sqlite:///tmp/ms.db"}, "metastore/sql.py"),
-], ids=["grpc_port", "offload", "offload_endpoint", "sqlite"])
-def test_unported_options_are_refused(config, module):
+def ingest_two_splits(port):
+    status, _ = send(port, "POST", "/api/v1/indexes", {
+        "index_id": "opt-logs", "doc_mapping": {"field_mappings": [
+            {"name": "body", "type": "text"}],
+            "default_search_fields": ["body"]}})
+    assert status == 200
+    for split in range(2):
+        ndjson = "\n".join(json.dumps({"body": f"option doc {split}"})
+                           for _ in range(10)).encode()
+        status, _ = send(port, "POST",
+                         "/api/v1/opt-logs/ingest?commit=force", ndjson)
+        assert status == 200
+
+
+@pytest.mark.parametrize("option", [
+    "grpc_port", "offload", "offload_endpoint", "sqlite"])
+def test_formerly_refused_options_work(option, tmp_path):
     q = load(PORT)
-    started = threading.active_count()
-    kw = {"metastore_uri": "ram:///refuse/ms", **config}
-    with pytest.raises(ValueError, match="not ported yet") as exc:
-        new_node(q, node_id="refuse", **kw)
-    assert module in str(exc.value) and "ROADMAP item" in str(exc.value)
-    assert threading.active_count() == started   # nothing was started
+    metrics = q.mod("observability.metrics")
+    resolver = q.storage.StorageResolver.for_test()
+    servers = []
+    kw = {"metastore_uri": "ram:///node-options/ms",
+          "default_index_root_uri": "ram:///node-options/idx"}
+    try:
+        if option in ("offload", "offload_endpoint"):
+            worker = new_node(q, resolver, node_id="opt-worker",
+                              roles=("searcher",), **kw)
+            servers.append(q.serve.RestServer(worker))
+            servers[-1].start()
+            endpoint = f"127.0.0.1:{servers[-1].port}"
+            kw.update({"offload": {"endpoints": [endpoint],
+                                   "max_local_splits": 0}}
+                      if option == "offload" else
+                      {"offload_endpoint": endpoint,
+                       "offload_max_local_splits": 0})
+        elif option == "grpc_port":
+            kw["grpc_port"] = 0
+        else:
+            kw["metastore_uri"] = f"sqlite://{tmp_path}/ms.db"
+        node = new_node(q, resolver, node_id="opt", **kw)
+        servers.append(q.serve.RestServer(node))
+        servers[-1].start()
+        ingest_two_splits(servers[-1].port)
+        remote = metrics.OFFLOAD_SPLITS_TOTAL.get(outcome="remote")
+        status, result = send(servers[-1].port, "GET",
+                              "/api/v1/opt-logs/search?query=option")
+        assert status == 200 and result["num_hits"] == 20
+        served_remotely = (metrics.OFFLOAD_SPLITS_TOTAL.get(
+            outcome="remote") - remote)
+        if option == "grpc_port":
+            assert node._grpc_advertise().endswith(
+                f":{node.grpc_server.port}")
+            channel = q.mod("serve.grpc_server").GrpcChannel(
+                "127.0.0.1", node.grpc_server.port)
+            try:
+                _, status, message = channel.call(
+                    "/jaeger.storage.v1.SpanReaderPlugin/GetServices", b"")
+            finally:
+                channel.close()
+            assert status == 0, message
+        elif option == "sqlite":
+            assert type(node.metastore) is q.mod(
+                "metastore.sql").SqlMetastore
+            assert len(node.metastore.list_splits(
+                q.mod("metastore.base").ListSplitsQuery())) == 2
+        else:
+            # both splits went to the worker, none ran here
+            assert served_remotely == 2
+            assert node.searcher_context.offload_pool().worker_ids() == [
+                endpoint]
+    finally:
+        for server in servers:
+            server.stop()
+            if server.node.grpc_server is not None:
+                server.node.grpc_server.stop()
 
 
 def test_sql_route_answers_501():
@@ -758,14 +817,19 @@ def test_sql_route_answers_501():
         server.stop()
 
 
-def test_peers_are_reached_over_http_even_when_they_advertise_grpc():
+def test_peers_advertising_grpc_are_reached_over_grpc():
     q = load(PORT)
     node = new_node(q, node_id="me", metastore_uri="ram:///peer/ms",
                     default_index_root_uri="ram:///peer/idx")
-    member = q.mod("cluster.membership").ClusterMember(
+    membership = q.mod("cluster.membership")
+    node.cluster.upsert_heartbeat(membership.ClusterMember(
         "peer", ("searcher",), rest_endpoint="127.0.0.1:9",
-        grpc_endpoint="127.0.0.1:10")
-    node.cluster.upsert_heartbeat(member)
-    client = node.clients["peer"]
-    assert type(client) is q.http_client.HttpSearchClient
-    assert node._grpc_advertise() == ""
+        grpc_endpoint="127.0.0.1:10"))
+    node.cluster.upsert_heartbeat(membership.ClusterMember(
+        "rest-only", ("searcher",), rest_endpoint="127.0.0.1:11"))
+    grpc_client = node.clients["peer"]
+    assert type(grpc_client) is q.mod("serve.grpc_server").GrpcSearchClient
+    assert grpc_client.grpc_endpoint == "127.0.0.1:10"
+    assert grpc_client.endpoint == "127.0.0.1:9"
+    assert type(node.clients["rest-only"]) is q.http_client.HttpSearchClient
+    assert node._grpc_advertise() == ""   # this node has no grpc_port
