@@ -401,6 +401,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             nodes in turns, 20 warm calls of distinct percentiles (no
             cache answers); W2's listener stopped (a retry, still 48 remote,
             none back); W1's too (all 48 run on M's card).
+17. mesh  : the fan-out's device mesh (`parallel/mesh.py`, the mesh route
+            of `parallel/fanout.py`) over phase 11's splits, with the
+            counters zeroed again; every comparison and timing launch is
+            counted apart. Meshes of the one card repeated at the split
+            axes of the JAX suite's shapes, 2, 4 and 8 rows: the flagship,
+            c2 and c2
+            by (timestamp, tenant_id) over the 8 hdfs splits and c5 over
+            the 64 otel splits, each equal to the single-device batch
+            (hits, sort-value bits and counts exactly, f64 agg sums to rtol
+            1e-12), a scored request launching `score_topk_lanes`
+            ceil(row splits / 16) times on each row and no solo
+            `score_topk`, and the `qw_mesh_*` deltas (one dispatch, the
+            grid's rows, no threshold round; the collective bytes printed,
+            held against the JAX package by the CPU tests). Two seeded
+            splits with 12 NaN gains,
+            by gain desc and asc: the mesh equals the single-device batch,
+            which equals the CPU's (the NaN hits first, then last).
+            Two query groups of 4 flagship variants (time windows; terms
+            sizes, one lane launch per row) on a 2-row mesh, each equal to
+            its solo batches. A `SearcherContext` with `mesh_devices` of
+            the card repeated 4 times: one mesh dispatch (`dispatch.launch`
+            with mesh 4), equal to a single-device service, and a warm
+            repeat that stages 0 bytes. 20 warm flagship calls in turns on
+            a 4-row mesh and as the single-device batch (wall p50/p90: the
+            mesh's cost on one card). Then `POST /api/v1/_sql` on a node on
+            the card over phase 12's metastore: a GROUP BY with COUNT, AVG
+            and APPROX_PERCENTILE and a DATE_TRUNC group over the 8-split
+            otel index, a WHERE ... ORDER BY ... LIMIT projection over the
+            hdfs index (the otel splits hold no documents), each equal to
+            `execute_sql` over a root on a CPU node.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -422,6 +452,7 @@ import queue
 import random
 import resource
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2845,8 +2876,8 @@ def check_fanout(torch, st, m, dev, iters, label, here, flush, reqs,
         m.svc_mod.abandon_dispatch
     abandoned = []
 
-    def dispatch_then_expire(batch, request, device=None):
-        out = real_dispatch(batch, request, device)
+    def dispatch_then_expire(batch, request, device=None, mesh=None):
+        out = real_dispatch(batch, request, device, mesh)
         m.deadline.current_deadline()._expires_at = float("-inf")
         return out
 
@@ -5260,6 +5291,409 @@ def check_grpc_offload(torch, st, m, dev, label, iters, rooted,
         tmp.cleanup()
 
 
+# --------------------------------------------------------------------------
+# phase 17: the fan-out's device mesh and the SQL analytics route
+
+# the split axes of tests/test_mesh_root_merge.py's (2, 1), (4, 2), (8, 1)
+MESH_ROWS = (2, 4, 8)
+
+
+def mesh_modules():
+    """The port's modules under the names `check_mesh` reads (and
+    `phase12_like` for a rehearsal)."""
+    m = grpc_offload_modules()
+    from quickwit_tpu_torch.analytics import execute_sql
+    from quickwit_tpu_torch.index import SplitWriter
+    from quickwit_tpu_torch.models.doc_mapper import DocMapper, FieldMapping
+    from quickwit_tpu_torch.observability import flight
+    from quickwit_tpu_torch.parallel import fanout, mesh
+    from quickwit_tpu_torch.query.ast import (
+        Bool, MatchAll, Range, RangeBound)
+    from quickwit_tpu_torch.search import executor
+    from quickwit_tpu_torch.search.models import SortField
+    m.__dict__.update(
+        execute_sql=execute_sql, SplitWriter=SplitWriter,
+        DocMapper=DocMapper, FieldMapping=FieldMapping, flight=flight,
+        fanout=fanout, mesh=mesh, Bool=Bool, MatchAll=MatchAll, Range=Range,
+        RangeBound=RangeBound, ex=executor, SortField=SortField)
+    return m
+
+
+def _fbits(value):
+    if isinstance(value, float):
+        return ("f", struct.unpack("<q", struct.pack("<d", value))[0])
+    return value
+
+
+def bit_hits(resp):
+    """A response's hits with the bits of their float sort values, so
+    that NaN and the two zeros compare."""
+    return [(h.split_id, h.doc_id, _fbits(h.sort_value),
+             _fbits(h.raw_sort_value), _fbits(h.sort_value2),
+             _fbits(h.raw_sort_value2)) for h in resp.partial_hits]
+
+
+def same_merged(got, want, label) -> None:
+    """Hits with their sort-value bits and the count exactly; the
+    aggregation states as `assert_aggs_close` holds them (f64 sums to
+    rtol 1e-12: the mesh sums its rows' sums)."""
+    if got.num_hits != want.num_hits or bit_hits(got) != bit_hits(want):
+        raise AssertionError(f"{label}: hits or count differ")
+    assert_aggs_close(want.intermediate_aggs, got.intermediate_aggs,
+                      f"{label} aggs")
+
+
+def same_json(want, got, path="$") -> None:
+    """Equal parsed JSON, floats to rtol 1e-12."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys differ")
+        for key in want:
+            same_json(want[key], got[key], f"{path}.{key}")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (w, g) in enumerate(zip(want, got)):
+            same_json(w, g, f"{path}[{i}]")
+    elif isinstance(want, float) and isinstance(got, float):
+        if not (want == got or abs(got - want) <= 1e-12 * abs(want)):
+            raise AssertionError(f"{path}: {want!r} vs {got!r}")
+    elif want != got or type(want) is not type(got):
+        raise AssertionError(f"{path}: {want!r} vs {got!r}")
+
+
+def nan_splits(m) -> tuple:
+    """Two small seeded splits, 12 NaN gains in the second: (mapper,
+    storage, ids)."""
+    mapper = m.DocMapper(field_mappings=[
+        m.FieldMapping("timestamp", m.FieldType.DATETIME, fast=True,
+                       input_formats=("unix_timestamp",)),
+        m.FieldMapping("gain", m.FieldType.F64, fast=True),
+        m.FieldMapping("body", m.FieldType.TEXT)],
+        timestamp_field="timestamp")
+    import numpy as np
+    rng = np.random.RandomState(17)
+    storage = m.RamStorage(m.Uri.parse("ram:///chip_mesh_nan"))
+    ids = ["nan-a", "nan-b"]
+    nan_at = set(rng.choice(500, size=12, replace=False).tolist())
+    for split_id in ids:
+        writer = m.SplitWriter(mapper)
+        for i in range(500):
+            gain = float(rng.randint(0, 50))
+            if split_id == "nan-b" and i in nan_at:
+                gain = float("nan")
+            writer.add_json_doc({"timestamp": 1_600_000_000 + i,
+                                 "gain": gain, "body": "alpha"})
+        storage.put(f"{split_id}.split", writer.finish())
+    return mapper, storage, ids
+
+
+def mesh_sql_statements(otel_index: str) -> dict:
+    return {
+        "group_by_service": (
+            "SELECT service_name, COUNT(*) AS n, AVG(span_duration_micros) "
+            "AS mean, APPROX_PERCENTILE(span_duration_micros, 95) AS p95 "
+            f"FROM {otel_index} GROUP BY service_name ORDER BY n DESC"),
+        "where_order_limit": (
+            "SELECT tenant_id, severity_text FROM hdfs-logs WHERE "
+            "severity_text = 'ERROR' AND tenant_id >= 3 ORDER BY tenant_id "
+            "DESC LIMIT 10"),
+        "date_trunc": (
+            "SELECT DATE_TRUNC('minute', span_start_timestamp) AS minute, "
+            f"COUNT(*) AS n FROM {otel_index} GROUP BY DATE_TRUNC('minute', "
+            "span_start_timestamp) ORDER BY minute ASC LIMIT 20"),
+    }
+
+
+def check_mesh(torch, st, m, dev, label, iters, rooted,
+               otel_index="otel-traces-head", mesh_rows=MESH_ROWS) -> dict:
+    """Phase 17: the batch over a device mesh (`parallel/mesh.py` and the
+    mesh route of `parallel/fanout.py`) on grids of the one card
+    repeated, over phase 11's splits: each response against the
+    single-device batch, the lane kernel on every row of a scored
+    request, the `qw_mesh_*` metric deltas; the NaN input; a query group
+    on a mesh; the service with `mesh_devices`; the mesh's one-card cost;
+    then `POST /api/v1/_sql` on a node on the card against `execute_sql`
+    over a CPU root. Returns the path's launches (comparisons and timings
+    set aside)."""
+    import numpy as np
+    fan, mesh_mod = m.fanout, m.mesh
+    storage = rooted["storage"]
+    hdfs_ids, otel_ids = rooted["hdfs_ids"], rooted["otel_ids"]
+    seconds = {}
+
+    def counts():
+        return st.score_topk.launches, st.score_topk_lanes.launches
+
+    def aside(fn, *args, **kw):
+        """Run a comparison or a timing: its launches are not the path's."""
+        saved = counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def counter(name):
+        return getattr(m.metrics, name).get()
+
+    def grid(rows):
+        return mesh_mod.make_mesh(rows, devices=[dev] * rows)
+
+    def readers(ids, store=storage):
+        return [m.SplitReader(store, f"{split_id}.split") for split_id in ids]
+
+    def single(batch, req):
+        """The single-device batch of the same request: (response, k)."""
+        dispatched = fan.dispatch_batch(batch, req, dev)
+        return fan.readback_batch(dispatched), dispatched.k
+
+    reqs = {**hdfs_requests(m.SearchRequest, m.Term, m.body_term),
+            **doc_space_requests(m.SearchRequest, m.SortField, m.Bool,
+                                 m.Range, m.RangeBound, m.Term,
+                                 m.body_term)}
+    c5 = m.SearchRequest(
+        index_ids=["otel-traces"], query_ast=m.MatchAll(), max_hits=0,
+        aggs={"latency": {"percentiles": {"field": "span_duration_micros",
+                                          "percents": [50, 95, 99]}}})
+    hdfs_readers, otel_readers = readers(hdfs_ids), readers(otel_ids)
+    cases = {
+        "flagship": (reqs["flagship"], m.HDFS_MAPPER, hdfs_readers,
+                     hdfs_ids),
+        "c2_bool_range_top100": (reqs["c2_bool_range_top100"], m.HDFS_MAPPER,
+                                 hdfs_readers, hdfs_ids),
+        "c2_ts_tenant_top100": (reqs["c2_ts_tenant_top100"], m.HDFS_MAPPER,
+                                hdfs_readers, hdfs_ids),
+        "c5_otel": (c5, m.OTEL_BENCH_MAPPER, otel_readers, otel_ids),
+    }
+    metric_names = ("MESH_DISPATCHES_TOTAL", "MESH_COLLECTIVE_BYTES_TOTAL",
+                    "MESH_THRESHOLD_EXCHANGE_ROUNDS_TOTAL")
+    # the CPU runs the kernels' plain versions, which count no launch
+    on_card = dev.type == "cuda"
+    st.score_topk.launches = st.score_topk_lanes.launches = 0
+
+    # a. batches on the mesh, each against the single-device batch
+    t0 = time.perf_counter()
+    for name, (req, mapper, split_readers, ids) in cases.items():
+        batch = fan.build_batch(req, mapper, split_readers, ids)
+        want, k = aside(single, batch, req)
+        fused = m.ex._takes_fused_kernel(batch.template, k)
+        for a in mesh_rows:
+            mesh = grid(a)
+            before = [counter(n) for n in metric_names]
+            k0, l0 = counts()
+            got = fan.execute_batch(batch, req, device=dev, mesh=mesh)
+            seen = {"score_topk": st.score_topk.launches - k0,
+                    "score_topk_lanes": st.score_topk_lanes.launches - l0}
+            deltas = {n.lower(): counter(n) - b
+                      for n, b in zip(metric_names, before)}
+            deltas["mesh_devices"] = counter("MESH_DEVICES")
+            # the collective bytes are printed; the CPU tests hold them
+            # against the JAX package's
+            expect = {"mesh_dispatches_total": 1,
+                      "mesh_threshold_exchange_rounds_total": 0,
+                      "mesh_devices": a}
+            held = {n: deltas[n] for n in expect}
+            rows = batch.n_splits // a
+            lanes = a * -(-rows // st.MAX_LANES) if fused and on_card else 0
+            same_merged(got, want, f"mesh {name} rows={a}")
+            say(f"mesh {name} rows={a}: splits={batch.n_splits} num_hits="
+                f"{got.num_hits} launches={json.dumps(seen)} metrics="
+                f"{json.dumps(deltas)} equal_to_single_device_batch=True")
+            if seen != {"score_topk": 0, "score_topk_lanes": lanes}:
+                raise AssertionError(f"mesh {name} rows={a}: launches {seen}, "
+                                     f"expected {lanes} lane launches")
+            if held != expect:
+                raise AssertionError(f"mesh {name} rows={a}: metrics {held}"
+                                     f" vs {expect}")
+        del batch
+    seconds["batches"] = time.perf_counter() - t0
+
+    # b. NaN sort values: the mesh answers as the single-device batch
+    t0 = time.perf_counter()
+    nan_mapper, nan_storage, nan_ids = nan_splits(m)
+    for order in ("desc", "asc"):
+        req = m.SearchRequest(index_ids=["nan"], query_ast=m.MatchAll(),
+                              max_hits=5,
+                              sort_fields=(m.SortField("gain", order),))
+        batch = fan.build_batch(req, nan_mapper,
+                                readers(nan_ids, nan_storage), nan_ids)
+        want, _ = aside(single, batch, req)
+        got = fan.execute_batch(batch, req, device=dev, mesh=grid(2))
+        same_merged(got, want, f"mesh nan {order}")
+        # the CPU's order (the JAX package's): NaN first descending, last
+        # ascending
+        same_merged(want, fan.execute_batch(fan.build_batch(
+            req, nan_mapper, readers(nan_ids, nan_storage), nan_ids), req,
+            device="cpu"), f"mesh nan {order} vs cpu")
+        nans = sum(np.isnan(h.sort_value) for h in got.partial_hits)
+        say(f"mesh nan gain {order} top5 rows=2: split_ids="
+            f"{[h.split_id for h in got.partial_hits]} nan_hits={nans} "
+            "equal_to_single_device_batch=True equal_to_cpu=True")
+        if nans != (5 if order == "desc" else 0):
+            raise AssertionError(f"mesh nan {order}: {nans} NaN hits")
+    seconds["nan"] = time.perf_counter() - t0
+
+    # c. query groups of 4 flagship variants on a 2-row mesh
+    t0 = time.perf_counter()
+    flagship = reqs["flagship"]
+    t_lo = min(r.footer.time_range[0] for r in hdfs_readers) // 1_000_000
+    variants = {
+        "flagship_windows": [dataclasses.replace(
+            flagship, start_timestamp=t_lo + i * 86400) for i in range(4)],
+        "flagship_term_sizes": [dataclasses.replace(flagship, aggs={
+            **flagship.aggs, "severities": {"terms": {
+                "field": "severity_text", "size": size}}})
+            for size in (10, 6, 3, 1)],
+    }
+    for name, group_reqs in variants.items():
+        batches = [fan.build_batch(r, m.HDFS_MAPPER, hdfs_readers, hdfs_ids)
+                   for r in group_reqs]
+        k = min(flagship.max_hits, batches[0].num_docs_padded)
+        fused = m.ex._takes_fused_kernel(batches[0].template, k)
+        k0, l0 = counts()
+        group = fan.execute_query_group(batches, group_reqs[0], device=dev,
+                                        mesh=grid(2))
+        seen = {"score_topk": st.score_topk.launches - k0,
+                "score_topk_lanes": st.score_topk_lanes.launches - l0}
+        for i, (got, b, r) in enumerate(zip(group, batches, group_reqs)):
+            same_merged(got, aside(single, fan.build_batch(
+                r, m.HDFS_MAPPER, hdfs_readers, hdfs_ids), r)[0],
+                f"mesh group {name}[{i}]")
+        say(f"mesh group {name} rows=2: queries={len(batches)} num_hits="
+            f"{[g.num_hits for g in group]} launches={json.dumps(seen)} "
+            "equal_to_solo_batches=True")
+        # each row's one launch covers its 4 splits of all 4 queries
+        want_lanes = 2 if fused and on_card else 0
+        if seen != {"score_topk": 0, "score_topk_lanes": want_lanes}:
+            raise AssertionError(f"mesh group {name}: launches {seen}")
+    seconds["groups"] = time.perf_counter() - t0
+
+    # d. the service with mesh_devices: one mesh dispatch per group
+    t0 = time.perf_counter()
+    resolver = m.StorageResolver()
+    resolver.register(m.Protocol.RAM, lambda _uri: storage)
+    splits = [m.models.SplitIdAndFooter(
+        split_id, SPLITS_URI, storage.file_num_bytes(f"{split_id}.split"),
+        num_docs=r.num_docs) for split_id, r in zip(hdfs_ids, hdfs_readers)]
+
+    def leaf(svc, req):
+        return svc.leaf_search(m.models.LeafSearchRequest(
+            search_request=req, index_uid="hdfs-logs:01",
+            doc_mapping=m.HDFS_MAPPER.to_dict(), splits=splits))
+
+    def service(**kw):
+        return m.svc_mod.SearchService(m.svc_mod.SearcherContext(
+            storage_resolver=resolver, device=dev, batch_size=8, **kw))
+
+    mesh_svc = service(mesh_devices=[dev] * 4)
+    ref_svc = service()
+    for attempt, max_hits in (("cold", 10), ("warm", 9)):
+        req = dataclasses.replace(flagship, max_hits=max_hits)
+        m.flight.FLIGHT.begin_run()
+        d0 = counter("MESH_DISPATCHES_TOTAL")
+        s0 = counter("STAGING_BYTES_TOTAL")
+        c0 = counter("RESIDENT_COLUMN_MISSES")
+        got = leaf(mesh_svc, req)
+        launches = [e["attrs"] for e in m.flight.FLIGHT.events()
+                    if e["kind"] == "dispatch.launch"]
+        staged = counter("STAGING_BYTES_TOTAL") - s0
+        uploads = counter("RESIDENT_COLUMN_MISSES") - c0
+        same_merged(got, aside(leaf, ref_svc, req), f"mesh service {attempt}")
+        say(f"mesh service {attempt} flagship max_hits={max_hits}: "
+            f"launch_events={json.dumps(launches)} mesh_dispatches="
+            f"{counter('MESH_DISPATCHES_TOTAL') - d0} staged_bytes={staged} "
+            f"column_uploads={uploads} equal_to_single_device_service=True")
+        if [(e.get("path"), e.get("mesh")) for e in launches] != \
+                [("batch", 4)]:
+            raise AssertionError(f"mesh service {attempt}: {launches}")
+        if attempt == "warm" and (staged or uploads):
+            raise AssertionError("mesh service: a warm repeat staged "
+                                 f"{staged} bytes, {uploads} columns")
+    seconds["service"] = time.perf_counter() - t0
+    path = {"score_topk": st.score_topk.launches,
+            "score_topk_lanes": st.score_topk_lanes.launches}
+
+    # e. the mesh's cost on one card: the flagship in turns, warm
+    t0 = time.perf_counter()
+    batch_one = fan.build_batch(flagship, m.HDFS_MAPPER, hdfs_readers,
+                                hdfs_ids)
+    batch_mesh = fan.build_batch(flagship, m.HDFS_MAPPER, hdfs_readers,
+                                 hdfs_ids)
+    mesh4 = grid(4)
+    aside(fan.execute_batch, batch_one, flagship, device=dev)
+    aside(fan.execute_batch, batch_mesh, flagship, device=dev, mesh=mesh4)
+    mesh_walls, one_walls = [], []
+    for _ in range(iters):
+        t1 = time.perf_counter()
+        aside(fan.execute_batch, batch_mesh, flagship, device=dev,
+              mesh=mesh4)
+        t2 = time.perf_counter()
+        aside(fan.execute_batch, batch_one, flagship, device=dev)
+        mesh_walls.append((t2 - t1) * 1e3)
+        one_walls.append((time.perf_counter() - t2) * 1e3)
+    say(f"[{label}] mesh timing flagship (8 hdfs splits): mesh_4rows_p50_ms="
+        f"{pct(mesh_walls, 0.5):.4f} mesh_4rows_p90_ms="
+        f"{pct(mesh_walls, 0.9):.4f} single_device_p50_ms="
+        f"{pct(one_walls, 0.5):.4f} single_device_p90_ms="
+        f"{pct(one_walls, 0.9):.4f} iters={iters}")
+    del batch_one, batch_mesh
+    seconds["timing"] = time.perf_counter() - t0
+
+    # f. POST /api/v1/_sql on a node on the card against execute_sql over
+    # a CPU root on the same splits
+    t0 = time.perf_counter()
+    meta_storage = rooted["meta_storage"]
+    sql_resolver = m.StorageResolver()
+    sql_resolver.register(m.Protocol.RAM, lambda uri: (
+        meta_storage if str(uri).startswith(METASTORE_URI) else storage))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sql_")
+    node = m.serve.Node(m.serve.NodeConfig(
+        node_id="mesh-sql", rest_port=0, device=dev.type,
+        metastore_uri=METASTORE_URI, default_index_root_uri=SPLITS_URI,
+        data_dir=os.path.join(tmp.name, "node")),
+        storage_resolver=sql_resolver)
+    server = m.serve.RestServer(node)
+    nodes, servers = [node], [server]
+    try:
+        server.start()
+        cpu_root = m.RootSearcher(
+            m.FileBackedMetastore(meta_storage),
+            {"cpu": m.svc_mod.LocalSearchClient(m.svc_mod.SearchService(
+                m.svc_mod.SearcherContext(storage_resolver=sql_resolver,
+                                          device="cpu", batch_size=8)))})
+
+        def cpu_search(index_id, query_ast, max_hits, aggs):
+            return cpu_root.search(m.SearchRequest(
+                index_ids=[index_id], query_ast=query_ast,
+                max_hits=max_hits, aggs=aggs))
+
+        for name, statement in mesh_sql_statements(otel_index).items():
+            t1 = time.perf_counter()
+            got = rest(server.port, "POST", "/api/v1/_sql",
+                       {"query": statement})
+            t2 = time.perf_counter()
+            want = aside(m.execute_sql, statement, cpu_search)
+            same_json(json.loads(json.dumps(want)), got, f"sql {name}")
+            if not got["rows"]:
+                raise AssertionError(f"sql {name}: no rows")
+            say(f"mesh sql {name}: columns={got['columns']} rows="
+                f"{len(got['rows'])} first={json.dumps(got['rows'][0])} "
+                f"card_s={t2 - t1:.3f} cpu_s={time.perf_counter() - t2:.3f} "
+                "equal_to_cpu_execute_sql=True")
+        path = {"score_topk": st.score_topk.launches,
+                "score_topk_lanes": st.score_topk_lanes.launches}
+    finally:
+        release_nodes(torch, nodes, servers)
+        tmp.cleanup()
+    seconds["sql"] = time.perf_counter() - t0
+    say(f"mesh launches: {json.dumps(path)}")
+    say(f"[{label}] mesh seconds: "
+        + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
+    if on_card and path["score_topk_lanes"] < 1:
+        raise AssertionError("mesh: score_topk_lanes never launched")
+    return {"launches": path}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -5661,6 +6095,13 @@ def main(argv=None) -> int:
                                  label, args.iters, rooted)
     say(f"grpc phase_s={time.perf_counter() - t0:.3f}")
 
+    # 17. the fan-out's device mesh and the SQL route, with the counters
+    # zeroed again ---------------------------------------------------------
+    t0 = time.perf_counter()
+    meshed = check_mesh(torch, st, mesh_modules(), dev, label, args.iters,
+                        rooted)
+    say(f"mesh phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -5675,7 +6116,8 @@ def main(argv=None) -> int:
         # root phase's one-split nodes (none: its nodes batch), the write
         # phase's searches over one merged split and the sources, serve and
         # gRPC phases' (a node's one-split leaf request, where placement
-        # gives a node one split)
+        # gives a node one split), and the mesh phase's (none: its scored
+        # requests run the lane kernel on each row)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
@@ -5686,7 +6128,8 @@ def main(argv=None) -> int:
                      + written["launches"]["score_topk"]
                      + sourced["launches"]["score_topk"]
                      + served["launches"]["score_topk"]
-                     + gridded["launches"]["score_topk"]),
+                     + gridded["launches"]["score_topk"]
+                     + meshed["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5708,13 +6151,17 @@ def main(argv=None) -> int:
         # A's node runs in a subprocess, whose counts this process cannot
         # read) and the gRPC phase's (the flagship's batches on the three
         # nodes, the scored otel request's on M and its offload workers)
+        # and the mesh phase's (one per row of each scored mesh batch, per
+        # row of the fused query group and of the service's mesh batches,
+        # and the SQL projection's batch)
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
                      + rooted["launches"]["score_topk_lanes"]
                      + written["launches"]["score_topk_lanes"]
                      + sourced["launches"]["score_topk_lanes"]
                      + served["launches"]["score_topk_lanes"]
-                     + gridded["launches"]["score_topk_lanes"]),
+                     + gridded["launches"]["score_topk_lanes"]
+                     + meshed["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",

@@ -478,6 +478,29 @@ SEARCH_CANCEL_TOTAL = METRICS.counter(
     "qw_search_cancel_total",
     "Explicit query cancellations accepted via the REST cancel surface")
 
+# --- the fan-out's device mesh (parallel/fanout.py mesh route) -------------
+# One dispatch = one batch over a device grid: each row scores its shard of
+# the splits on its own device, then the candidate gather + re-top-k and
+# the agg/count reduce run as copies to the mesh's lead device and
+# reductions there; ONE packed readback.
+MESH_DISPATCHES_TOTAL = METRICS.counter(
+    "qw_mesh_dispatches_total",
+    "Whole-query collective programs dispatched over a device mesh")
+MESH_DEVICES = METRICS.gauge(
+    "qw_mesh_devices",
+    "Devices (rows) of the most recent mesh dispatch")
+# Logical payload bytes, as the JAX program reports them less its
+# threshold-exchange scalar: each collective's operand size summed once per
+# dispatch (gathered candidates + reduced agg, count and certificate).
+MESH_COLLECTIVE_BYTES_TOTAL = METRICS.counter(
+    "qw_mesh_collective_bytes_total",
+    "Logical payload bytes moved by on-mesh collectives per dispatch")
+# The JAX package's name. The port's mesh runs no threshold exchange
+# (parallel/fanout.py), so this stays 0.
+MESH_THRESHOLD_EXCHANGE_ROUNDS_TOTAL = METRICS.counter(
+    "qw_mesh_threshold_exchange_rounds_total",
+    "Cross-device sort-threshold all-reduce (pmax) rounds executed")
+
 # --- flight recorder (observability/flight.py) ------------------------------
 FLIGHT_EVENTS_TOTAL = METRICS.counter(
     "qw_flight_events_total",

@@ -1,8 +1,9 @@
-"""Multi-split execution on one device: a leaf's splits as one dispatch.
+"""Multi-split execution: a leaf's splits as one dispatch, on one device or
+over a device mesh.
 
-Counterpart of the JAX package's `parallel/fanout.py`, its single-device
-half (role of the reference's per-node leaf batches merged by the
-`IncrementalCollector`, SURVEY.md §2.3). `build_batch` lowers one request
+Counterpart of the JAX package's `parallel/fanout.py` (role of the
+reference's per-node leaf batches merged by the `IncrementalCollector`,
+SURVEY.md §2.3, and of its root merge tree). `build_batch` lowers one request
 against every split of a batch with batch-global bucket spaces, so their
 aggregation states merge by position; `dispatch_batch` runs the splits'
 programs and the cross-split merge on the device, and `readback_batch`
@@ -35,11 +36,38 @@ per split, as a stacked query group is (PR 8's lane machinery):
 
 The JAX readback re-runs a batch whose guided top-k could not certify its
 answer (`topk_safe == 0`). The port runs `exact_topk`, whose `topk_safe` is
-always 1, so that branch has no counterpart here. The mesh half (the
-`torch.distributed` collectives) comes with a later slice.
+always 1, so that branch has no counterpart here.
+
+The mesh route (`mesh=`, the JAX `mesh_batch_fn`) shards the splits over
+the rows of a one-axis device grid (parallel/mesh.py), in contiguous
+blocks as the JAX `P("splits")` sharding does. Each row runs its splits'
+lanes on its own device (`score_topk_lanes` launches of at most MAX_LANES
+of the row's splits), then the root merge runs as collectives to the
+mesh's lead device:
+
+1. the rows' candidates gathered split-major and re-ranked by
+   `exact_topk` / `exact_topk_2key`, as the single-device merge ranks
+   them, so the mesh answers as the single-device batch on every input;
+2. the counts and agg states reduced per row, then across the rows
+   (`_merge_agg_collective`: psum / pmin / pmax by leaf name).
+
+The JAX program runs a threshold exchange first (each row's k-th best
+value, their pmax, and a `>=` mask of the candidates). It masks only
+candidates that cannot reach the top k, and then gathers all n_splits x k
+of them all the same, so it saves no bytes; its float `>=` also drops
+NaN candidates that its host merge ranks first (ROADMAP §3). The port
+runs no exchange, and `qw_mesh_threshold_exchange_rounds_total` stays 0.
+
+The JAX package serializes mesh dispatches behind `_MESH_DISPATCH_LOCK`
+because XLA's per-device rendezvous of two programs enqueued from two
+threads can deadlock. The port's collectives are copies and reductions
+issued from the dispatching thread, with no rendezvous, so mesh
+dispatches take no lock and an abandoned one holds nothing.
 
 A query group (`dispatch_query_group`) is Q batches over one split set as
-Q x n lanes in one dispatch, each query with its own cross-split merge.
+Q x n lanes in one dispatch, each query with its own cross-split merge; on
+a mesh the query axis stays lanes and the rows' fused steps cover every
+live query.
 """
 
 from __future__ import annotations
@@ -57,6 +85,7 @@ from ..index.reader import SplitReader
 from ..models.doc_mapper import DocMapper
 from ..observability import flight
 from ..observability.metrics import (
+    MESH_COLLECTIVE_BYTES_TOTAL, MESH_DEVICES, MESH_DISPATCHES_TOTAL,
     QBATCH_GROUPS_TOTAL, QBATCH_MASKED_RIDERS_TOTAL,
     QBATCH_QUERIES_PER_DISPATCH, QBATCH_SHARED_BYTES_AVOIDED_TOTAL,
     SEARCH_KERNEL_LAUNCHES_TOTAL, SEARCH_KERNEL_THRESHOLD_TOTAL,
@@ -82,6 +111,9 @@ from ..search.plan import (
     MAX_BUCKETS, LoweredPlan, PlanError, lower_request,
     ordinalize_numeric_column,
 )
+from ..search.residency import mesh_stack_id
+from . import mesh as mesh_ops
+from .mesh import Mesh
 
 
 def is_device_fault(exc: BaseException) -> bool:
@@ -296,6 +328,25 @@ _LANE_PROGRAMS: dict[tuple, dict[str, Any]] = {}
 ex.PROGRAM_CACHES.append(_LANE_PROGRAMS)
 
 
+def _agg_leaf_combiner(trees: list, red):
+    """Combine equal-structure agg state trees leaf by leaf: `red(name,
+    leaves)` gets each leaf's tensors with the name of its nearest dict
+    key."""
+    def walk(nodes, name):
+        first = nodes[0]
+        if isinstance(first, torch.Tensor):
+            return red(name, nodes)
+        if isinstance(first, dict):
+            return {key: walk([node[key] for node in nodes], key)
+                    for key in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(walk([node[i] for node in nodes], name)
+                               for i in range(len(first)))
+        return None
+
+    return walk(trees, None)
+
+
 def _merge_agg_stack(trees: list):
     """The lanes' agg state trees (one per split, equal structure) → one
     tree, each leaf combined over the lanes by the name of its nearest
@@ -313,19 +364,29 @@ def _merge_agg_stack(trees: list):
                               stacked[:, 4:5].amax(0)])
         return stacked.sum(0)
 
-    def walk(nodes, name):
-        first = nodes[0]
-        if isinstance(first, torch.Tensor):
-            return red(name, nodes)
-        if isinstance(first, dict):
-            return {key: walk([node[key] for node in nodes], key)
-                    for key in first}
-        if isinstance(first, (list, tuple)):
-            return type(first)(walk([node[i] for node in nodes], name)
-                               for i in range(len(first)))
-        return None
+    return _agg_leaf_combiner(trees, red)
 
-    return walk(trees, None)
+
+def _merge_agg_collective(trees: list, lead):
+    """`_merge_agg_stack`'s collective twin (the JAX function of this
+    name): `trees` are the rows' locally merged states in row order, and
+    the SAME per-leaf combiner runs across them as mesh collectives onto
+    `lead`. A row of pad splits only has no state and takes no part: a pad
+    split's state is the identity of every combiner."""
+    def red(name, leaves):
+        if name == "min":
+            return mesh_ops.pmin(leaves, lead)
+        if name in ("max", "hll"):   # HLL registers merge by max too
+            return mesh_ops.pmax(leaves, lead)
+        if name == "stats":
+            # state vector [count, sum, sum_sq, min, max]: first three add
+            return torch.cat([
+                mesh_ops.psum([t[:3] for t in leaves], lead),
+                mesh_ops.pmin([t[3:4] for t in leaves], lead),
+                mesh_ops.pmax([t[4:5] for t in leaves], lead)])
+        return mesh_ops.psum(leaves, lead)
+
+    return _agg_leaf_combiner(trees, red)
 
 
 def _lane_width(batch: SplitBatch) -> int:
@@ -347,14 +408,26 @@ def _merge_lanes(results: list, k: int, n_splits: int, dev):
     safe = torch.ones((), dtype=torch.float64, device=dev)
     merged_aggs = _merge_agg_stack([r[6] for r in results])
     if k == 0:  # count/agg-only: no cross-split hit merge
-        empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
-        return (torch.zeros(0, dtype=torch.float64, device=dev), None,
-                empty_i, empty_i, torch.zeros(0, dtype=torch.float32,
-                                              device=dev),
-                total, safe, merged_aggs)
+        return _empty_hits(dev) + (total, safe, merged_aggs)
     kk = results[0][0].shape[0]
-    # pad splits offer -inf candidates after the real ones, as their
-    # all-invalid rows do in the JAX program
+    vals, vals2, ids, scores = _candidates(results, n_splits, kk, dev,
+                                           results[0][1] is not None)
+    return _rerank(vals, vals2, ids, scores, k, kk) \
+        + (total, safe, merged_aggs)
+
+
+def _empty_hits(dev) -> tuple:
+    empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+    return (torch.zeros(0, dtype=torch.float64, device=dev), None, empty_i,
+            empty_i, torch.zeros(0, dtype=torch.float32, device=dev))
+
+
+def _candidates(results: list, n_splits: int, kk: int, dev,
+                two_key: bool) -> tuple:
+    """The lanes' winners flattened split-major (values, values 2 | None,
+    doc ids, hit scores), `n_splits` lanes of `kk`: pad splits (the ones
+    past `results`) offer -inf candidates after the real ones, as their
+    all-invalid rows do in the JAX program."""
     pad = (n_splits - len(results)) * kk
 
     def flat(i, fill, dtype):
@@ -363,20 +436,26 @@ def _merge_lanes(results: list, k: int, n_splits: int, dev):
             parts.append(torch.full((pad,), fill, dtype=dtype, device=dev))
         return torch.cat(parts)
 
-    # split-major [n * kk]: equal keys keep split order, then rank order
-    vals = flat(0, topk_ops.NEG_INF, torch.float64)
+    return (flat(0, topk_ops.NEG_INF, torch.float64),
+            flat(1, topk_ops.NEG_INF, torch.float64) if two_key else None,
+            flat(2, 0, torch.int32), flat(3, 0.0, torch.float32))
+
+
+def _rerank(vals, vals2, ids, scores, k: int, kk: int) -> tuple:
+    """The re-top-k over split-major candidates: equal keys keep split
+    order, then rank order. (top values, top values 2 | None, split index,
+    doc ids, hit scores)."""
     width = min(k, vals.shape[0])
-    if results[0][1] is None:
+    if vals2 is None:
         top_vals, pos = topk_ops.exact_topk(vals, width)
         top_vals2 = None
     else:
-        top_vals, top_vals2, pos = topk_ops.exact_topk_2key(
-            vals, flat(1, topk_ops.NEG_INF, torch.float64), width)
+        top_vals, top_vals2, pos = topk_ops.exact_topk_2key(vals, vals2,
+                                                            width)
     # a lane's winners span kk positions (the JAX program divides by k,
     # which kk equals unless k exceeds the batch's longest posting list)
     split_idx = torch.div(pos, kk, rounding_mode="floor").to(torch.int32)
-    return (top_vals, top_vals2, split_idx, flat(2, 0, torch.int32)[pos],
-            flat(3, 0.0, torch.float32)[pos], total, safe, merged_aggs)
+    return top_vals, top_vals2, split_idx, ids[pos], scores[pos]
 
 
 def _fused_steps(lanes: list, k: int, width: int) -> dict:
@@ -422,6 +501,144 @@ def batch_fn(batch: SplitBatch, k: int):
     return fn
 
 
+# --------------------------------------------------------------------------
+# the mesh route
+
+def _usable_mesh(batch: SplitBatch, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """A mesh the batch can shard over, else None (the single-device
+    route): the JAX routing rule, under which a split axis that does not
+    divide the batch's splits (pad splits included) takes the
+    single-device path. The service's `device_mesh` only hands out
+    dividing axes; this guards direct callers."""
+    if mesh is None:
+        return None
+    return mesh if batch.n_splits % mesh.size == 0 else None
+
+
+def _shard_rows(n_splits: int, mesh: Mesh) -> list[range]:
+    """The split indices of each row: contiguous blocks of n_splits /
+    rows, the JAX `P("splits")` sharding of [n, ...] operands."""
+    per = n_splits // mesh.size
+    return [range(r * per, (r + 1) * per) for r in range(mesh.size)]
+
+
+def _default_device(device, mesh: Optional[Mesh]) -> torch.device:
+    """The device a call runs on when it does not go over its mesh:
+    `device`, else the mesh's lead device, else `cuda`."""
+    if device is None and mesh is not None:
+        device = mesh.lead
+    return resolve_device(device)
+
+
+def _lane_devices(batch: SplitBatch, mesh: Optional[Mesh], dev) -> list:
+    """The device each real split's lane runs on: its row's device on a
+    mesh, else `dev`."""
+    if mesh is None:
+        return [dev] * len(batch.plans)
+    devs = []
+    for row, row_dev in zip(_shard_rows(batch.n_splits, mesh),
+                            mesh.row_devices()):
+        devs.extend(row_dev for i in row if i < len(batch.plans))
+    return devs
+
+
+def _mesh_merge(per_query: list, k: int, n_splits: int, mesh: Mesh,
+                row_devs: list, kk: int) -> list:
+    """The on-mesh root merge of Q queries: `per_query[q][r]` holds query
+    q's lane results on row r (the row's real splits, in split order).
+    Each query's merge is its own. Returns one result tree per query, on
+    the lead device."""
+    lead = mesh.lead
+    rows = _shard_rows(n_splits, mesh)
+    # row 0 always holds a real split: pad splits come last
+    two_key = k > 0 and per_query[0][0][0][1] is not None
+    out = []
+    for rows_results in per_query:
+        # -- each row's count and agg states, reduced across the rows --
+        counts = [torch.stack([r[4] for r in results]).sum() if results
+                  else torch.zeros((), dtype=torch.int64, device=dev)
+                  for results, dev in zip(rows_results, row_devs)]
+        total = mesh_ops.psum(counts, lead)
+        safe = torch.ones((), dtype=torch.float64, device=lead)
+        merged = _merge_agg_collective(
+            [_merge_agg_stack([r[6] for r in results])
+             for results in rows_results if results], lead)
+        if k == 0:  # count/agg-only: no candidates to gather
+            out.append(_empty_hits(lead) + (total, safe, merged))
+            continue
+        # -- split-major gather + re-top-k --
+        cands = [_candidates(results, len(idx), kk, dev, two_key)
+                 for results, idx, dev in zip(rows_results, rows, row_devs)]
+        g_vals = mesh_ops.all_gather([c[0] for c in cands], lead)
+        g_vals2 = (mesh_ops.all_gather([c[1] for c in cands], lead)
+                   if two_key else None)
+        g_ids = mesh_ops.all_gather([c[2] for c in cands], lead)
+        g_scores = mesh_ops.all_gather([c[3] for c in cands], lead)
+        out.append(_rerank(g_vals, g_vals2, g_ids, g_scores, k, kk)
+                   + (total, safe, merged))
+    return out
+
+
+def _mesh_lanes(batch: SplitBatch, lanes: list, k: int, width: int,
+                mesh: Mesh, fused_of=None) -> list:
+    """Each row's lane results for one query (`[row][lane]`), the row's
+    lanes run on its device. `fused_of(i)` gives split i's fused step
+    when the caller ran them; else each row runs its own
+    `score_topk_lanes` launches."""
+    out = []
+    for idx, dev in zip(_shard_rows(batch.n_splits, mesh),
+                        mesh.row_devices()):
+        real = [i for i in idx if i < len(batch.plans)]
+        if fused_of is None:
+            fused = _fused_steps([(batch.plans[i], lanes[i]) for i in real],
+                                 k, width)
+            steps = [fused.get(j) for j in range(len(real))]
+        else:
+            steps = [fused_of(i) for i in real]
+        out.append([_run_lane(batch.plans[i], lanes[i], k, dev, step, width)
+                    for i, step in zip(real, steps)])
+    return out
+
+
+def mesh_batch_fn(batch: SplitBatch, k: int, mesh: Mesh):
+    """The whole query over the mesh (the JAX `mesh_batch_fn`):
+    fn(lanes) → the merged result tree on the mesh's lead device, `lanes`
+    as `stage_device_inputs(batch, mesh=mesh)` returns them (each split's
+    arrays on its row's device). Each row scores its shard of the splits
+    on its device, then the root merge runs as collectives
+    (`_mesh_merge`)."""
+    if batch.n_splits % mesh.size:
+        raise ValueError(
+            f"n_splits={batch.n_splits} does not shard over the "
+            f"{mesh.size}-row mesh (pad the batch)")
+    width = _lane_width(batch)
+
+    def fn(lanes):
+        rows = _mesh_lanes(batch, lanes, k, width, mesh)
+        kk = rows[0][0][0].shape[0] if k else 0
+        return _mesh_merge([rows], k, batch.n_splits, mesh,
+                           mesh.row_devices(), kk)[0]
+
+    return fn
+
+
+def _collective_payload_bytes(tree, k: int, n_splits: int) -> int:
+    """Logical bytes the mesh merge's collectives carry per dispatch
+    (`qw_mesh_collective_bytes_total`), counted as the JAX package counts
+    its program's, less its 8-byte threshold exchange, which the port does
+    not run: the gathered candidates (n_splits x k of f64 value, f64
+    second value for two keys, i32 doc id, f32 score) and the reduced agg
+    leaves plus the count (4) and certificate (8). `tree` is the merged
+    result tree."""
+    has2 = tree[1] is not None
+    gather = 0 if k == 0 else n_splits * k * (8 + (8 if has2 else 0) + 4 + 4)
+    leaves: list[torch.Tensor] = []
+    ex._flatten(tree[-1], leaves)
+    reduced = sum(t.numel() * t.element_size() for t in leaves)
+    reduced += 4 + 8                        # total count + safe certificate
+    return gather + reduced
+
+
 def batch_cache_key(batch: SplitBatch, k: int) -> tuple:
     """The JAX package's `_BATCH_JIT_CACHE` key for this batch without a
     mesh, post k-clamp (its last two fields: no mesh, not the exact
@@ -434,8 +651,9 @@ def batch_cache_key(batch: SplitBatch, k: int) -> tuple:
 
 
 def per_device_bytes(batch: SplitBatch) -> int:
-    """The bytes of device memory the batch's inputs take without a mesh:
-    every real split's staged arrays (nothing is stacked or padded)."""
+    """The bytes of device memory the batch's inputs take: every real
+    split's staged arrays (nothing is stacked or padded). On a mesh each
+    row's device holds its own splits' share."""
     return sum(a.nbytes for p in batch.plans for a in p.arrays)
 
 
@@ -449,40 +667,46 @@ def release_stack_pin(batch: SplitBatch, budget) -> None:
         budget.release(owner, admitted)
 
 
-def _stage_lanes(plans: list, dev, slots=None) -> list:
-    """Stage the given array slots (all when None) of every plan in ONE
-    packed non-blocking copy (`leaf._stage`); returns per-plan lists in
-    slot order, None at unstaged slots, and the bytes copied."""
-    missing: dict[tuple, np.ndarray] = {}
-    for i, plan in enumerate(plans):
+def _stage_lanes(plans: list, devs: list, slots=None) -> tuple[list, int]:
+    """Stage the given array slots (all when None) of every plan, plan i
+    on `devs[i]`, in ONE packed non-blocking copy per device
+    (`leaf._stage`); returns per-plan lists in slot order, None at
+    unstaged slots, and the bytes copied."""
+    by_dev: dict[str, tuple] = {}
+    nbytes = 0
+    for i, (plan, dev) in enumerate(zip(plans, devs)):
+        missing = by_dev.setdefault(str(dev), (dev, {}))[1]
         for slot, arr in enumerate(plan.arrays):
             if slots is None or slot in slots:
                 missing[(i, slot)] = np.ascontiguousarray(arr)
+                nbytes += arr.nbytes
     staged: dict[tuple, torch.Tensor] = {}
-    nbytes = sum(a.nbytes for a in missing.values())
-    if missing:
-        leaf_mod._stage(missing, staged, dev)
+    for dev, missing in by_dev.values():
+        if missing:
+            leaf_mod._stage(missing, staged, dev)
     return [[staged.get((i, slot)) for slot in range(len(plan.arrays))]
             for i, plan in enumerate(plans)], nbytes
 
 
-def _stage_through_budget(batch: SplitBatch, dev, budget, store) -> tuple:
+def _stage_through_budget(batch: SplitBatch, devs: list, keys: list,
+                          budget, store) -> tuple:
     """(lanes, bytes staged, slots already resident).
 
-    Stages each lane through the per-split route's own warmup, so the
-    batch and that route share one resident copy of each split and the
-    budget's bytes stay equal to the store's. Each lane's owner is pinned
-    first: a lane's admission then cannot evict a later lane's columns.
-    A batch whose missing bytes exceed the whole budget would wait on its
-    own pins, so it raises ValueError (the service searches it per
-    split)."""
+    Stages each lane on its device through the per-split route's own
+    warmup under the resident owner `keys[i]` (the split id on the
+    context's device, so the batch and that route share one resident copy
+    of each split). Each lane's owner is pinned first: a lane's admission
+    then cannot evict a later lane's columns. Every lane, on whichever
+    device, is admitted into the one `budget`, so a batch whose missing
+    bytes on all its devices together exceed it would wait on its own
+    pins: it raises ValueError (the service searches it per split)."""
     pre_pins = []
     pins = []
     try:
-        for plan, reader, split_id in zip(batch.plans, batch.readers,
-                                          batch.split_ids):
+        for plan, reader, dev, key in zip(batch.plans, batch.readers, devs,
+                                          keys):
             owner = leaf_mod._pinned_owner(reader, dev, budget, store,
-                                           split_id if store else None)
+                                           key if store else None)
             pre_pins.append(owner)
         need = missing = 0
         for plan, owner in zip(batch.plans, pre_pins):
@@ -492,14 +716,14 @@ def _stage_through_budget(batch: SplitBatch, dev, budget, store) -> tuple:
             missing += len(arrays)
         if need > budget.budget:
             raise ValueError(
-                f"batch needs {need} new bytes against a {budget.budget}-"
-                "byte budget (searched per split)")
+                f"batch needs {need} new bytes against a "
+                f"{budget.budget}-byte budget (searched per split)")
         lanes, staged = [], 0
-        for plan, reader, split_id in zip(batch.plans, batch.readers,
-                                          batch.split_ids):
+        for plan, reader, dev, key in zip(batch.plans, batch.readers, devs,
+                                          keys):
             arrays, admitted, owner = leaf_mod.warmup_device_arrays(
                 reader, plan, budget, store=store,
-                split_id=split_id if store else None, device=dev)
+                split_id=key if store else None, device=dev)
             pins.append((owner, admitted))
             lanes.append(arrays)
             staged += admitted
@@ -516,20 +740,30 @@ def _stage_through_budget(batch: SplitBatch, dev, budget, store) -> tuple:
 
 
 def stage_device_inputs(batch: SplitBatch, device=None, budget=None,
-                        store=None) -> list:
+                        store=None, mesh: Optional[Mesh] = None) -> list:
     """The lanes' device arrays (`[split][slot]`), staged once per device
-    and cached on the batch: a repeat of the same batch stages 0 bytes, as
-    the JAX package caches `batch._device_inputs` per mesh.
+    (or mesh) and cached on the batch: a repeat of the same batch stages 0
+    bytes, as the JAX package caches `batch._device_inputs` per mesh.
 
-    Without a budget the lanes' arrays cross in ONE packed copy. With the
-    node's `HbmBudget` (and its `ResidentColumnStore`, when residency is
-    on) each lane stages through `leaf.warmup_device_arrays` under its
-    split id, pinned until `release_stack_pin`. Call it on the stream the
+    Without a budget the lanes' arrays cross in ONE packed copy per
+    device. With the node's `HbmBudget` (and its `ResidentColumnStore`,
+    when residency is on) each lane stages through
+    `leaf.warmup_device_arrays`, pinned until `release_stack_pin`; the
+    budget and store are the context's, those of `device`.
+
+    On a mesh each split's lane stages on its row's device. A row on
+    `device` keys its resident copies by split id, so a grid that repeats
+    the context's card reuses the per-split route's copies; a row on
+    another device keeps its copies under the mesh's stack id
+    (`residency.mesh_stack_id`). The one budget and store hold every
+    row's copies, whatever their device. Call it on the stream the
     dispatch runs on: the copy is ordered before the programs by that
     stream alone."""
-    dev = resolve_device(device)
+    dev = _default_device(device, mesh)
+    mesh = _usable_mesh(batch, mesh)
     cache = vars(batch).setdefault("_device_inputs", {})
-    lanes = cache.get(str(dev))
+    cache_key = mesh if mesh is not None else str(dev)
+    lanes = cache.get(cache_key)
     if lanes is not None:
         with profiled_phase(PHASE_STAGING_CACHE_HIT) as rec:
             if rec is not None:
@@ -537,13 +771,18 @@ def stage_device_inputs(batch: SplitBatch, device=None, budget=None,
                 rec["stage"] = "batch"
         flight.emit("staging.resident_hit", attrs={"stage": "batch"})
         return lanes
+    devs = _lane_devices(batch, mesh, dev)
     resident_slots = 0
     if budget is not None:
+        stack_id = (mesh_stack_id(batch.split_ids, batch.num_docs_padded,
+                                  mesh) if mesh is not None else None)
+        keys = [split_id if lane_dev == dev else f"{stack_id}/{split_id}"
+                for split_id, lane_dev in zip(batch.split_ids, devs)]
         lanes, staged, resident_slots = _stage_through_budget(
-            batch, dev, budget, store)
+            batch, devs, keys, budget, store)
     else:
         with profiled_phase(PHASE_STAGING_UPLOAD) as rec:
-            lanes, staged = _stage_lanes(batch.plans, dev)
+            lanes, staged = _stage_lanes(batch.plans, devs)
             if rec is not None:
                 rec["bytes"] = staged
                 rec["stage"] = "batch"
@@ -554,7 +793,7 @@ def stage_device_inputs(batch: SplitBatch, device=None, budget=None,
                     attrs={"bytes": staged, "resident_slots": resident_slots})
     elif not staged:
         flight.emit("staging.resident_hit", attrs={"stage": "batch"})
-    cache[str(dev)] = lanes
+    cache[cache_key] = lanes
     return lanes
 
 
@@ -586,16 +825,36 @@ def _copy_out(rows: torch.Tensor, dev):
     return host, event
 
 
+def _note_mesh_dispatch(mesh: Mesh, **attrs) -> None:
+    """The `qw_mesh_*` metrics and the `mesh.collective` event of one
+    mesh dispatch, as the JAX package raises them, less the threshold
+    exchange the port does not run: a batch reports its collective
+    `bytes`, a query group its `path`."""
+    MESH_DISPATCHES_TOTAL.inc()
+    MESH_DEVICES.set(mesh.size)
+    if "bytes" in attrs:
+        MESH_COLLECTIVE_BYTES_TOTAL.inc(attrs["bytes"])
+    if flight.recording():
+        flight.emit("mesh.collective",
+                    attrs={"devices": mesh.size, **attrs})
+
+
 def dispatch_batch(batch: SplitBatch, request: SearchRequest,
-                   device=None) -> BatchDispatch:
+                   device=None, mesh: Optional[Mesh] = None) -> BatchDispatch:
     """Async half of the batch: stage (or reuse) the lanes' inputs, run
     every split's program and the cross-split merge, and start the copy
     of the packed result; nothing synchronizes. `readback_batch` completes
-    it, so the service can shed a deadline-expired query before the wait."""
+    it, so the service can shed a deadline-expired query before the wait.
+
+    With a `mesh` whose split axis divides the batch, the splits run on
+    the mesh's rows and merge on its lead device (`mesh_batch_fn`);
+    `device` is then the device the budget and store of a prior
+    `stage_device_inputs` call belong to."""
     # cancelled queries stop HERE, before staging device inputs or paying
     # an enqueue nobody will read (the readback checks again)
     check_cancelled("batch dispatch")
-    dev = resolve_device(device)
+    device = _default_device(device, mesh)
+    mesh = _usable_mesh(batch, mesh)
     # k=0 (count/agg-only): the lanes skip keying and top-k and the merge
     # skips the cross-split top-k
     k = min(request.start_offset + request.max_hits, batch.num_docs_padded)
@@ -603,20 +862,26 @@ def dispatch_batch(batch: SplitBatch, request: SearchRequest,
         # one dispatch, but each real lane's docs are threshold-masked
         SEARCH_KERNEL_THRESHOLD_TOTAL.inc(
             sum(1 for s in batch.split_ids if s))
-    lanes = stage_device_inputs(batch, dev)
+    lanes = stage_device_inputs(batch, device, mesh=mesh)
+    out_dev = mesh.lead if mesh is not None else device
     if flight.recording():
         flight.emit("dispatch.launch",
                     attrs={"path": "batch", "splits": batch.n_splits,
-                           "mesh": 0})
+                           "mesh": mesh.size if mesh is not None else 0})
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
     with profiled_phase(PHASE_EXECUTE) as rec:
         if rec is not None:
             rec["stage"] = "dispatch_batch"
+        tree = (mesh_batch_fn(batch, k, mesh)(lanes) if mesh is not None
+                else batch_fn(batch, k)(lanes, out_dev))
         leaves: list[torch.Tensor] = []
-        spec = ex._flatten(batch_fn(batch, k)(lanes, dev), leaves)
+        spec = ex._flatten(tree, leaves)
         packed = torch.cat([leaf.reshape(-1).to(torch.float64)
                             for leaf in leaves])
-        host, event = _copy_out(packed, dev)
+        host, event = _copy_out(packed, out_dev)
+    if mesh is not None:
+        _note_mesh_dispatch(mesh, bytes=_collective_payload_bytes(
+            tree, k, batch.n_splits))
     return BatchDispatch(host, event, spec, [batch], k, [True])
 
 
@@ -638,9 +903,10 @@ def _await(dispatched: BatchDispatch, path: str) -> np.ndarray:
 
 def abandon_dispatch(dispatched: BatchDispatch) -> None:
     """Deadline-shed seam: the dispatch flew but nobody will await its
-    readback. A single device holds no collective guard, so nothing waits:
-    the programs run out on the stream, and the host copy and the staged
-    inputs are freed with their last reference, after the stream's work."""
+    readback. No dispatch holds a guard (a mesh's collectives have no
+    rendezvous), so nothing waits: the programs run out on the streams,
+    and the host copy and the staged inputs are freed with their last
+    reference, after the streams' work."""
     dispatched.host = dispatched.event = None
 
 
@@ -718,17 +984,19 @@ def _decode_merged(batch: SplitBatch, k: int, top_vals, top_vals2,
 
 
 def execute_batch(batch: SplitBatch, request: SearchRequest,
-                  device=None) -> LeafSearchResponse:
-    """Run the batch on `device` (default `cuda`) and return one merged
-    LeafSearchResponse covering all its splits."""
-    return readback_batch(dispatch_batch(batch, request, device))
+                  device=None, mesh: Optional[Mesh] = None
+                  ) -> LeafSearchResponse:
+    """Run the batch on `device` (default `cuda`), or over `mesh`, and
+    return one merged LeafSearchResponse covering all its splits."""
+    return readback_batch(dispatch_batch(batch, request, device, mesh))
 
 
 # --------------------------------------------------------------------------
 # the query group: Q batches over one split set in one dispatch
 #
 # Each query keeps its own cross-split merge; the fused steps of all Q x n
-# lanes share `score_topk_lanes` launches. Column-family slots (packed
+# lanes share `score_topk_lanes` launches (on a mesh, each row's launches
+# cover its splits of every live query). Column-family slots (packed
 # fast-field values, fieldnorms and their zonemaps) depend only on the
 # split set, so a lane's slot whose key equals query 0's at that lane is
 # served from query 0's staged tensor; every other slot is the query's
@@ -754,23 +1022,27 @@ def group_slot_split(batches: list) -> tuple[tuple[int, ...],
     return tuple(shared), tuple(stacked)
 
 
-def group_cache_key(batches: list, k: int) -> tuple:
-    """The JAX package's `_GROUP_JIT_CACHE` key for this group without a
-    mesh, post k-clamp. The [Q] validity mask is not part of it."""
+def group_cache_key(batches: list, k: int,
+                    mesh: Optional[Mesh] = None) -> tuple:
+    """The JAX package's `_GROUP_JIT_CACHE` key for this group, post
+    k-clamp, with the port's mesh in the mesh's place. The [Q] validity
+    mask is not part of it."""
     b0 = batches[0]
     k = min(k, b0.num_docs_padded)
     _shared, stacked_slots = group_slot_split(batches)
     return (b0.template.signature(k), len(batches), b0.n_splits,
-            b0.num_docs_padded, stacked_slots, None, False)
+            b0.num_docs_padded, stacked_slots, mesh, False)
 
 
-def _group_lanes(batches: list, valid: list, dev) -> tuple[list, int]:
+def _group_lanes(batches: list, valid: list, dev,
+                 mesh: Optional[Mesh]) -> tuple[list, int]:
     """Each live query's lanes (`[query][split][slot]`, None for a masked
     query) and the bytes a sharing query did not stage: query 0's lanes
     through `stage_device_inputs`, every other query's non-shared slots in
-    one packed copy per query."""
+    one packed copy per query and device."""
     b0 = batches[0]
-    base = stage_device_inputs(b0, dev)
+    base = stage_device_inputs(b0, dev, mesh=mesh)
+    devs = _lane_devices(b0, mesh, dev)
     out: list = [base if valid[0] else None]
     avoided = 0
     for b, ok in zip(batches[1:], valid[1:]):
@@ -781,7 +1053,7 @@ def _group_lanes(batches: list, valid: list, dev) -> tuple[list, int]:
                 if not (key.startswith(_GROUP_SHARED_PREFIXES)
                         and key == plan0.array_keys[slot])}
                for plan, plan0 in zip(b.plans, b0.plans)]
-        staged, _ = _stage_lanes(b.plans, dev, set().union(*own))
+        staged, _ = _stage_lanes(b.plans, devs, set().union(*own))
         lanes = []
         for i, plan in enumerate(b.plans):
             lanes.append([staged[i][slot] if slot in own[i] else base[i][slot]
@@ -791,6 +1063,22 @@ def _group_lanes(batches: list, valid: list, dev) -> tuple[list, int]:
                            if slot not in own[i])
         out.append(lanes)
     return out, avoided
+
+
+def _group_fused(batches: list, group_lanes: list, k: int, width: int,
+                 split_sets: list) -> dict:
+    """The fused steps of every live query's lanes over each set of split
+    indices in `split_sets` (the whole batch, or one mesh row), sharing
+    `score_topk_lanes` launches within a set: (query, split) → step."""
+    fused_of: dict[tuple, Any] = {}
+    for idx in split_sets:
+        flat = [(q, i) for q, lanes in enumerate(group_lanes)
+                if lanes is not None for i in idx
+                if i < len(batches[q].plans)]
+        fused = _fused_steps([(batches[q].plans[i], group_lanes[q][i])
+                              for q, i in flat], k, width)
+        fused_of.update({qi: fused.get(j) for j, qi in enumerate(flat)})
+    return fused_of
 
 
 def group_fn(batches: list, k: int):
@@ -805,13 +1093,8 @@ def group_fn(batches: list, k: int):
     width = max(_lane_width(b) for b in batches)
 
     def fn(group_lanes, dev):
-        flat = [(q, i, plan, lanes[i])
-                for q, (b, lanes) in enumerate(zip(batches, group_lanes))
-                if lanes is not None for i, plan in enumerate(b.plans)]
-        fused = _fused_steps([(plan, arrays) for _, _, plan, arrays in flat],
-                             k, width)
-        fused_of = {(q, i): fused.get(j)
-                    for j, (q, i, _, _) in enumerate(flat)}
+        fused_of = _group_fused(batches, group_lanes, k, width,
+                                [range(batches[0].n_splits)])
         out = []
         for q, (b, lanes) in enumerate(zip(batches, group_lanes)):
             if lanes is None:
@@ -826,11 +1109,43 @@ def group_fn(batches: list, k: int):
     return fn
 
 
+def group_mesh_fn(batches: list, k: int, mesh: Mesh):
+    """The query group over the mesh (the JAX `group_mesh_fn`):
+    fn(group_lanes) → one merged result tree per query on the lead device
+    (None for a masked query). Each row's fused steps cover its splits of
+    every live query; then `_mesh_merge` runs each query's merge."""
+    b0 = batches[0]
+    if b0.n_splits % mesh.size:
+        raise ValueError(
+            f"n_splits={b0.n_splits} does not shard over the "
+            f"{mesh.size}-row mesh (pad the batch)")
+    width = max(_lane_width(b) for b in batches)
+
+    def fn(group_lanes):
+        fused_of = _group_fused(batches, group_lanes, k, width,
+                                _shard_rows(b0.n_splits, mesh))
+        live = [q for q, lanes in enumerate(group_lanes) if lanes is not None]
+        per_query = [_mesh_lanes(batches[q], group_lanes[q], k, width, mesh,
+                                 lambda i, q=q: fused_of[(q, i)])
+                     for q in live]
+        kk = per_query[0][0][0][0].shape[0] if k and per_query else 0
+        merged = _mesh_merge(per_query, k, b0.n_splits, mesh,
+                             mesh.row_devices(), kk) if per_query else []
+        out: list = [None] * len(batches)
+        for q, tree in zip(live, merged):
+            out[q] = tree
+        return out
+
+    return fn
+
+
 def dispatch_query_group(batches: list, request: SearchRequest,
-                         device=None, valid=None) -> BatchDispatch:
+                         device=None, valid=None,
+                         mesh: Optional[Mesh] = None) -> BatchDispatch:
     """Async half of a query group: Q batches of one template signature
-    over ONE split set as one dispatch. `valid[q] = False` masks query q:
-    it runs nothing and reads back as None. Returns the dispatch for
+    over ONE split set as one dispatch, on `device` or over `mesh` (when
+    its split axis divides the split set). `valid[q] = False` masks query
+    q: it runs nothing and reads back as None. Returns the dispatch for
     `readback_query_group`."""
     check_cancelled("query-group dispatch")
     b0 = batches[0]
@@ -839,6 +1154,8 @@ def dispatch_query_group(batches: list, request: SearchRequest,
     for b in batches[1:]:
         if b.split_ids != b0.split_ids:
             raise ValueError("query group spans different split sets")
+    dev = _default_device(device, mesh)
+    mesh = _usable_mesh(b0, mesh)
     sig0 = b0.template.signature(k)
     for b in batches[1:]:
         if b.template.signature(k) != sig0:
@@ -848,25 +1165,27 @@ def dispatch_query_group(batches: list, request: SearchRequest,
     valid = [True] * q if valid is None else [bool(v) for v in valid]
     if len(valid) != q:
         raise ValueError("dispatch_query_group: one validity flag per query")
-    dev = resolve_device(device)
+    out_dev = mesh.lead if mesh is not None else dev
     live = sum(valid)
     if live > 1:
         QBATCH_GROUPS_TOTAL.inc()
     QBATCH_QUERIES_PER_DISPATCH.observe(live)
     if q - live:
         QBATCH_MASKED_RIDERS_TOTAL.inc(q - live)
-    group_lanes, avoided = _group_lanes(batches, valid, dev)
+    group_lanes, avoided = _group_lanes(batches, valid, dev, mesh)
     if avoided:
         QBATCH_SHARED_BYTES_AVOIDED_TOTAL.inc(avoided)
     if flight.recording():
         flight.emit("dispatch.launch",
                     attrs={"path": "query_group", "lanes": q, "live": live,
-                           "mesh": 0})
+                           "mesh": mesh.size if mesh is not None else 0})
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
     with profiled_phase(PHASE_EXECUTE) as rec:
         if rec is not None:
             rec["stage"] = "dispatch_query_group"
-        trees = group_fn(batches, k)(group_lanes, dev)
+        trees = (group_mesh_fn(batches, k, mesh)(group_lanes)
+                 if mesh is not None
+                 else group_fn(batches, k)(group_lanes, dev))
         rows = out = spec = None
         for row, tree in enumerate(trees):
             if tree is None:
@@ -876,12 +1195,14 @@ def dispatch_query_group(batches: list, request: SearchRequest,
             flat = [leaf.reshape(-1).to(torch.float64) for leaf in leaves]
             if out is None:
                 out = torch.zeros((q, sum(t.numel() for t in flat)),
-                                  dtype=torch.float64, device=dev)
+                                  dtype=torch.float64, device=out_dev)
             torch.cat(flat, out=out[row])
         if out is not None:
-            rows, event = _copy_out(out, dev)
+            rows, event = _copy_out(out, out_dev)
         else:
             event = None
+    if mesh is not None:
+        _note_mesh_dispatch(mesh, path="query_group")
     return BatchDispatch(rows, event, spec, list(batches), k, valid)
 
 
@@ -905,9 +1226,11 @@ def readback_query_group(dispatched: BatchDispatch) -> list:
 
 
 def execute_query_group(batches: list, request: SearchRequest,
-                        device=None, valid=None) -> list:
+                        device=None, valid=None,
+                        mesh: Optional[Mesh] = None) -> list:
     """Run Q shape-compatible queries over one split set as ONE dispatch
-    on `device` (default `cuda`); one LeafSearchResponse per query (None
-    for queries masked by `valid`)."""
+    on `device` (default `cuda`) or over `mesh`; one LeafSearchResponse
+    per query (None for queries masked by `valid`)."""
     return readback_query_group(
-        dispatch_query_group(batches, request, device, valid=valid))
+        dispatch_query_group(batches, request, device, valid=valid,
+                             mesh=mesh))

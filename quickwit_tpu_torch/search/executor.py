@@ -505,6 +505,15 @@ def _eval_aggs(aggs, gathered, scalars, valid):
     return agg_out
 
 
+def _negated(key: torch.Tensor) -> torch.Tensor:
+    """`-key` (f64) as the CPU and the JAX CPU program negate: the sign bit
+    flipped on every value, NaN included. A CUDA negation may return a NaN
+    of the other sign, which `lax.top_k`'s total order ranks at the other
+    end of an ascending sort."""
+    return (key.view(torch.int64) ^ torch.iinfo(torch.int64).min).view(
+        torch.float64)
+
+
 def _keyed_for(by, descending, values_slot, present_slot, view, mask,
                scores, doc_key):
     """Higher-is-better f64 key for one sort part (missing column values get
@@ -515,12 +524,12 @@ def _keyed_for(by, descending, values_slot, present_slot, view, mask,
     if by == "score":
         key = scores.to(torch.float64)
         if not descending:
-            key = -key
+            key = _negated(key)
         return torch.where(mask, key, neg_inf)
     if by == "column":
         key = agg_ops.as_f64(view[values_slot])
         if not descending:
-            key = -key
+            key = _negated(key)
         if present_slot == PRESENT_FROM_VALUES:
             present = view[values_slot] >= 0  # ordinal columns: -1 = missing
         else:
@@ -532,7 +541,7 @@ def _keyed_for(by, descending, values_slot, present_slot, view, mask,
                                                                 neg_inf))
     # "doc"
     key = doc_key.to(torch.float64)
-    return torch.where(mask, key if descending else -key, neg_inf)
+    return torch.where(mask, key if descending else _negated(key), neg_inf)
 
 
 def _takes_fused_kernel(plan: LoweredPlan, k: int) -> bool:

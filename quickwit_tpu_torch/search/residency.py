@@ -56,7 +56,7 @@ logger = logging.getLogger(__name__)
 __all__ = ["RESIDENT_BYTES", "RESIDENT_COLUMN_HITS", "RESIDENT_COLUMN_MISSES",
            "RESIDENT_EVICTIONS", "RESIDENT_READBACKS_SHED",
            "RESIDENT_STAGING_CACHE_HITS", "ResidentColumnStore",
-           "SplitColumns", "note_group_shared_staging"]
+           "SplitColumns", "mesh_stack_id", "note_group_shared_staging"]
 
 
 def note_group_shared_staging(plans, live_lanes: int) -> int:
@@ -79,6 +79,19 @@ def note_group_shared_staging(plans, live_lanes: int) -> int:
     QBATCH_SHARED_BYTES_AVOIDED_TOTAL.inc(nbytes)
     RESIDENT_COLUMN_HITS.inc(len(shared_slots) * (live_lanes - 1))
     return nbytes
+
+
+def mesh_stack_id(split_ids, num_docs_padded: int, mesh) -> str:
+    """Stable residency key for one mesh's column set (the JAX package's
+    identity, with the same digest): the ordered split set, the padded doc
+    count, the mesh's axis names and grid shape. The mesh route keys the
+    resident copies it keeps on a device other than the context's under
+    it, so copies laid out for one grid never serve another."""
+    import hashlib
+    ident = repr((tuple(split_ids), num_docs_padded,
+                  tuple(mesh.axis_names), tuple(mesh.devices.shape)))
+    digest = hashlib.blake2b(ident.encode(), digest_size=12).hexdigest()
+    return f"meshstack:{digest}"
 
 
 class _NotifyingCache(dict):

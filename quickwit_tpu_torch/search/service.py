@@ -15,7 +15,10 @@ The SearcherContext owns the caches (readers, resident columns per split,
 leaf responses, predicate masks, partial aggregations), the admission
 budget and the query batcher — the roles of the reference's SearcherContext
 (`service.rs:405`) and SearchPermitProvider. One context serves one device:
-its resident store, budget and batcher hold only that device's tensors.
+its resident store, budget and batcher hold that device's tensors. A
+context given `mesh_devices` beyond its own device also keeps, keyed
+apart, the copies its mesh rows hold on those devices, in the same one
+store and budget.
 
 Counterpart of the JAX package's `search/service.py`. A group of
 `batch_size` splits takes the batch route (parallel/fanout.py: one dispatch
@@ -28,7 +31,17 @@ the root's second phase; `LocalSearchClient` is the in-process transport
 the root (search/root.py) calls. A request with more splits than
 `offload_max_local_splits` sends its cold tail to the context's offload
 pool (offload/), whose workers run it on their own devices; what they do
-not serve runs here. There is no mesh route: a context serves one device.
+not serve runs here.
+
+The batch route goes over a device mesh (`device_mesh`) when the
+context's `mesh_devices` hold more than one device and the group's split
+count shards over them, as the JAX service shards over `jax.devices()`:
+each mesh row runs its splits on its device and the merge collects on
+the mesh's lead device (parallel/fanout.py). `mesh_devices` defaults to
+the context's own device alone, so no mesh: a caller names the grid. A
+row on the context's device shares the per-split route's resident
+copies, so a grid that repeats one card runs the mesh route on that
+card.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ import logging
 import os
 from collections import OrderedDict
 from typing import Any, Optional
+
+import torch
 
 from .. import resolve_device
 from ..common import sync
@@ -61,6 +76,7 @@ from ..parallel.fanout import (
     abandon_dispatch, build_batch, dispatch_batch, is_device_fault,
     readback_batch, release_stack_pin, stage_device_inputs,
 )
+from ..parallel.mesh import make_mesh
 from ..query.ast import MatchAll
 from ..storage.base import StorageResolver
 from ..tenancy.context import TenantContext, current_tenant, tenant_scope
@@ -121,11 +137,20 @@ class SearcherContext:
                  enable_mask_cache: bool = True,
                  enable_agg_cache: bool = True,
                  fault_injector=None,
-                 device=None):
+                 device=None,
+                 mesh_devices=None):
         # the one device this context stages on and runs on (default
         # `cuda`); the resident store and the budget below hold only its
         # tensors, so two contexts on two devices never share a column
         self.device = resolve_device(device)
+        # the devices a batch may shard over (`device_mesh`), the
+        # counterpart of `jax.devices()`. By default only this context's
+        # device, so no mesh: a mesh's copies all go into this context's
+        # one store and budget, and a context (an offload worker's, a
+        # node's on its card) serves its one device. A device may repeat:
+        # [cuda:0] * 4 runs the mesh route on one card.
+        self.mesh_devices = [torch.device(d) for d in (
+            mesh_devices if mesh_devices is not None else [self.device])]
         self.storage_resolver = storage_resolver or StorageResolver.default()
         # disk-resident split cache (reference SearchSplitCache,
         # split_cache/mod.rs:43): reader opens check it first; misses
@@ -186,6 +211,7 @@ class SearcherContext:
         self._readers: OrderedDict[str, SplitReader] = OrderedDict()
         self._max_open_splits = max_open_splits
         self._lock = sync.lock("SearchService._lock")
+        self._meshes: dict = {}
         # elastic leaf-search offload (reference: lambda leaf-search
         # offload, quickwit-lambda-client/src/invoker.rs:129 + the
         # scheduling split at leaf.rs:1658,1828): cold splits beyond
@@ -264,6 +290,30 @@ class SearcherContext:
         if self.offload_dispatcher() is None:
             return None
         return self._offload_pool
+
+    def device_mesh(self, n_splits: int):
+        """A ("splits",) mesh sized to shard `n_splits` across
+        `mesh_devices`, or None when the batch cannot shard — one device,
+        one split, or no axis size >1 divides the batch (the JAX rule).
+
+        The splits axis takes the largest size ≤ ndev that divides the
+        batch, as the JAX service's does. Devices past it stay unused: the
+        JAX service folds them into a docs axis, which the port's mesh
+        does not have (parallel/mesh.py)."""
+        ndev = len(self.mesh_devices)
+        if ndev < 2 or n_splits < 2:
+            return None
+        axis = min(ndev, n_splits)
+        while axis > 1 and n_splits % axis:
+            axis -= 1
+        if axis < 2:
+            return None
+        with self._lock:
+            mesh = self._meshes.get(axis)
+            if mesh is None:
+                mesh = self._meshes[axis] = make_mesh(axis,
+                                                      self.mesh_devices)
+            return mesh
 
     def has_warm_reader(self, split: SplitIdAndFooter) -> bool:
         """True when this split's reader (and its byte-range/device
@@ -1060,15 +1110,21 @@ class SearchService:
         context = self.context
         try:
             # staging runs here, on the caller's current stream, the
-            # stream the dispatch runs on
+            # stream the dispatch runs on. The mesh is fixed at staging
+            # time: lanes staged for one grid must not feed another.
+            # Each lane is admitted into the context's one budget under
+            # its split's resident owner on its row's device (the lanes
+            # ARE the splits' resident arrays; no per-request owner pins
+            # a copy of them)
+            mesh = context.device_mesh(batch.n_splits)
             stage_device_inputs(batch, context.device,
                                 budget=context.hbm_budget,
-                                store=context.resident_store)
+                                store=context.resident_store, mesh=mesh)
             # dispatch and readback are split so the deadline can shed
             # BETWEEN them: the programs may run to completion on the
             # device, but a query nobody waits for never pays the wait
             dispatched = dispatch_batch(batch, search_request,
-                                        context.device)
+                                        context.device, mesh)
             deadline = current_deadline()
             if deadline is not None and deadline.expired:
                 abandon_dispatch(dispatched)

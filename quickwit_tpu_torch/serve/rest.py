@@ -26,10 +26,10 @@ Role of the reference's warp router + handlers (`quickwit-serve/src/rest.rs`,
   POST /internal/fetch_docs
   POST /internal/heartbeat
 
-Counterpart of the JAX package's `serve/rest.py`, route for route. Two
-routes differ: `POST /api/v1/_sql` answers 501 until the SQL engine is
-ported, and the debug route's `jit_cache_entries` counts the executor's
-program caches (`search.executor.executor_cache_size`).
+Counterpart of the JAX package's `serve/rest.py`, route for route
+(`POST /api/v1/_sql` runs analytics/sql.py over the node's root). One
+route differs: the debug route's `jit_cache_entries` counts the
+executor's program caches (`search.executor.executor_cache_size`).
 """
 
 from __future__ import annotations
@@ -655,8 +655,22 @@ class RestServer:
 
         # --- SQL analytics (role of the fork's datafusion_api) --------
         if path == "/api/v1/_sql" and method == "POST":
-            raise ApiError(501, "_sql: the SQL engine (analytics/sql.py) is "
-                                "not ported yet (ROADMAP item 14)")
+            from ..analytics import SqlError, execute_sql
+            from ..search.models import SearchRequest as _SR
+            payload = json.loads(body) if body else {}
+            statement = payload.get("query")
+            if not isinstance(statement, str) or not statement.strip():
+                raise ApiError(400, "_sql expects {\"query\": \"SELECT ...\"}")
+
+            def run_search(index_id, query_ast, max_hits, aggs):
+                return node.root_searcher.search(_SR(
+                    index_ids=[index_id], query_ast=query_ast,
+                    max_hits=max_hits, aggs=aggs))
+
+            try:
+                return 200, execute_sql(statement, run_search)
+            except SqlError as exc:
+                raise ApiError(400, str(exc))
         # --- scroll / list apis ---------------------------------------
         if path == "/api/v1/scroll":
             scroll_id = params.get("scroll_id")

@@ -9,9 +9,8 @@ once each package's directory is written as `<tmp>` (index and split
 URIs name it). The client scenarios drive a JAX node and a port node
 (`tests/test_torch_rest_api.py`'s `Pair`) through each package's own
 `QuickwitClient`; every call must return equal results (minus wall
-times) or raise equal `QuickwitError` statuses. One call differs on
-purpose: `QuickwitClient.sql`, whose route answers 501 in the port until
-the SQL engine is ported (ROADMAP item 14).
+times) or raise equal `QuickwitError` statuses, `QuickwitClient.sql`
+included.
 
 Then the port's own: `load_node_config` gives equal `NodeConfig` fields
 in both packages for one file and environment (the port adds `device`),
@@ -369,15 +368,11 @@ def test_full_lifecycle(client):
     assert sum(b["doc_count"]
                for b in es["aggregations"]["per_hour"]["buckets"]) \
         == len(CLIENT_DOCS)
-    # the JAX node answers the SQL query; the port refuses it until the
-    # SQL engine is ported
+    # both nodes answer the SQL query, with equal rows
     jax_client, port_client = client.clients
     rows = jax_client.sql("SELECT COUNT(*) AS n FROM app")["rows"]
     assert rows[0][0] == len(CLIENT_DOCS)
-    with pytest.raises(QuickwitError) as exc:
-        port_client.sql("SELECT COUNT(*) AS n FROM app")
-    assert exc.value.status == 501
-    assert "analytics/sql.py" in exc.value.body["message"]
+    assert port_client.sql("SELECT COUNT(*) AS n FROM app")["rows"] == rows
     pages = client.scroll("app", query="clientword", max_hits=15)
     seen = [h["ts"] for page in pages for h in page["hits"]]
     assert sorted(seen) == sorted(d["ts"] for d in CLIENT_DOCS)

@@ -278,6 +278,11 @@ def mixed_cluster(tmp_path_factory):
                 server.start()
                 sides[package] = (q, node, server)
             jq, jnode, jserver = sides["quickwit_tpu"]
+            # split ids are (wall time, seeded draw): a fixed time prefix
+            # makes the rendezvous placement, and so which root's top hits
+            # cross to the other node, the same in every run
+            from quickwit_tpu.models import split_metadata as j_split_md
+            mp.setattr(j_split_md, "wall_time", lambda: 1_700_000_000.0)
             with deterministic(mp, jq, fake_clock=False):
                 status, _ = send(jserver.port, "POST", "/api/v1/indexes",
                                  MIXED_INDEX)

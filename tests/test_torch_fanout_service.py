@@ -82,9 +82,9 @@ class BatchSpy:
         real_dispatch = t_service.dispatch_batch
         real_execute = t_leaf.execute_prepared_split
 
-        def dispatch(batch, request, device=None):
+        def dispatch(batch, request, device=None, mesh=None):
             self.batches.append(list(batch.split_ids))
-            return real_dispatch(batch, request, device)
+            return real_dispatch(batch, request, device, mesh)
 
         def execute(*args, **kw):
             self.per_split += 1
@@ -291,8 +291,8 @@ def test_deadline_sheds_between_dispatch_and_readback(engines, monkeypatch):
     abandoned = []
     real_abandon = t_service.abandon_dispatch
 
-    def dispatch(batch, request, device=None):
-        out = real_dispatch(batch, request, device)
+    def dispatch(batch, request, device=None, mesh=None):
+        out = real_dispatch(batch, request, device, mesh)
         _expire_ambient_deadline()
         return out
 

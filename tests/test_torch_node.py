@@ -15,8 +15,8 @@ on a `FakeClock`, as the JAX file does, the others on the real clock.
 
 Then the options a port node once refused: `grpc_port`, `offload`,
 `offload_endpoint` and a `sqlite://` metastore each build a node that
-serves, and peers that advertise gRPC are reached over it. What is still
-unported answers 501 (`POST /api/v1/_sql`), naming the missing module.
+serves, and peers that advertise gRPC are reached over it; and
+`POST /api/v1/_sql`, which answers as the JAX node's route.
 """
 
 import json
@@ -801,20 +801,37 @@ def test_formerly_refused_options_work(option, tmp_path):
                 server.node.grpc_server.stop()
 
 
-def test_sql_route_answers_501():
-    q = load(PORT)
-    node = new_node(q, node_id="sql", metastore_uri="ram:///sql/ms",
-                    default_index_root_uri="ram:///sql/idx")
-    server = q.serve.RestServer(node)
-    server.start()
-    try:
-        status, body = send(server.port, "POST", "/api/v1/_sql",
-                            {"query": "SELECT COUNT(*) FROM x"})
-        assert status == 501
-        assert "analytics/sql.py" in body["message"]
-        assert "ROADMAP item 14" in body["message"]
-    finally:
-        server.stop()
+def test_sql_route_answers_like_jax():
+    """`POST /api/v1/_sql` runs analytics/sql.py over the node's root: a
+    port node answers as a JAX node over the same documents, and a
+    statement neither can run is a 400 in both."""
+    from test_torch_rest_api import pair_of_nodes
+    docs = [{"ts": 1_600_000_000 + i, "service": ["api", "db"][i % 2],
+             "latency": float(i)} for i in range(10)]
+    with pair_of_nodes(node_id="sql", metastore_uri="ram:///sql/ms",
+                       default_index_root_uri="ram:///sql/idx") as pair:
+        status, _ = pair.request("POST", "/api/v1/indexes", {
+            "index_id": "x", "doc_mapping": {
+                "field_mappings": [
+                    {"name": "ts", "type": "datetime", "fast": True,
+                     "input_formats": ["unix_timestamp"]},
+                    {"name": "service", "type": "text", "tokenizer": "raw",
+                     "fast": True},
+                    {"name": "latency", "type": "f64", "fast": True}],
+                "timestamp_field": "ts"}})
+        assert status == 200
+        status, _ = pair.request(
+            "POST", "/api/v1/x/ingest?commit=force",
+            "\n".join(json.dumps(d) for d in docs).encode())
+        assert status == 200
+        status, body = pair.request("POST", "/api/v1/_sql", {
+            "query": "SELECT service, COUNT(*) AS n, SUM(latency) AS s "
+                     "FROM x GROUP BY service ORDER BY service ASC"})
+        assert status == 200
+        assert body["rows"] == [["api", 5, 20.0], ["db", 5, 25.0]]
+        status, _ = pair.request("POST", "/api/v1/_sql",
+                                 {"query": "SELECT FROM x"})
+        assert status == 400
 
 
 def test_peers_advertising_grpc_are_reached_over_grpc():
