@@ -7,7 +7,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. build  : compile every CUDA kernel of the path from `quickwit_tpu_torch/
             csrc/` with nvcc (all sources at once), and print the seconds
             and what ptxas reports per kernel (registers, shared memory,
-            spills).
+            spills); at the same time the host C++ of `quickwit_tpu_torch/
+            native/` with g++ (`fastindex`, the native index builder and
+            merge, and `leafbench`, the native leaf comparator), each of
+            which must build and load.
 2. kernels: hold each kernel against its plain torch version on the card, at
             the slice's shape and at the edge cases (ties across the whole
             persistent grid, scores rising with the index, misaligned
@@ -292,9 +295,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               reorder renumbers doc ids);
             - gc past the deletion grace: only the merged split's file
               stays; search A once more.
+            Every default-tokenized text field of each indexed split must
+            carry the native builder's `"native"` footer marker, and the
+            merge's term merges must all take `_merge_inverted_native`.
             It prints each step's seconds, docs per second of ingest and
-            index, the flagship's p50 over the 4 indexed splits and over
-            the merged one, and the launches of each step.
+            index (beside the Python path's 5,013 on the same card's
+            host, before the native builder), the flagship's
+            p50 over the 4 indexed splits and over the merged one, and the
+            launches of each step.
 14. sources: external sources and the control plane (`indexing/{kafka,
             kinesis,sqs,cooperative}.py` and their fakes, `cluster/`,
             `control_plane/`, `common/actors.py`), with the counters
@@ -431,6 +439,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             otel index, a WHERE ... ORDER BY ... LIMIT projection over the
             hdfs index (the otel splits hold no documents), each equal to
             `execute_sql` over a root on a CPU node.
+18. native: the native write path against the Python one, with the
+            counters zeroed again: the 131,072 docs of `write_docs(--seed)`
+            as two splits, each written by `SplitWriter` natively and (in
+            two worker processes meanwhile) on the Python path: equal
+            arrays and field meta, apart from the `"native"` marker; the
+            two native splits merged under the timestamp reorder natively
+            and on the Python path: equal bytes; then, over the merged
+            131,072-doc split, `leafbench`'s counts for the flagship term
+            and c2's shape, each equal to `num_hits` of the port leaf on
+            the card.
+19. dst   : the deterministic simulation harness (`quickwit_tpu_torch/
+            dst/`) with the cluster's searches on the card, with the
+            counters zeroed again: `smoke` (seeds 0-3), `mixed` and
+            `fanout` (seeds 0-1) at the JAX package's sizes, every
+            invariant held and each trace digest equal to the same seed's
+            run on the CPU; `fanout` with `mesh_devices` of the card
+            repeated 4 times (the mesh route runs), equal to its CPU
+            digest; the planted `QW_DST_BREAK_PUBLISH` bug found by a sweep
+            on the card, shrunk, saved and replayed byte-identically twice
+            on the card. It prints the seconds per scenario and the
+            launches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -486,6 +515,23 @@ def build_kernels(build_mod) -> dict[str, float]:
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build_mod.load, names))
     return {name: build_mod.BUILD_SECONDS[name] for name in names}
+
+
+def build_native(native) -> dict[str, float]:
+    """Build the host C++ of the write path (`native/fastindex.cpp`, the
+    native index builder and merge) and the leaf comparator
+    (`native/leafbench.cpp`) with g++ into the package's `_build/native/`
+    through the package's own loaders, and load both; seconds each. A
+    failed build fails the run: no Python fallback may stand in for the
+    native path here."""
+    seconds = {}
+    for name, loader in (("fastindex", native.load_fastindex),
+                         ("leafbench", native.load_leafbench)):
+        t0 = time.perf_counter()
+        if loader() is None:
+            raise AssertionError(f"native build failed: {name}")
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    return seconds
 
 
 def print_ptxas(build_mod, names) -> None:
@@ -3363,6 +3409,9 @@ WRITE_REQUEST_DOCS = 4_096      # docs per ingest request
 WRITE_DELETED_TENANT = 10       # carried by the last request alone
 WRITE_RARE_TERM = 3_000         # ~24 of 524,288 docs: every hit on a page
 WRITE_T0 = 1_600_000_000
+# the index step's docs/s on the Python path, before the native builder
+# (NVIDIA H100 80GB HBM3 host, 700.00 W; PERF.md)
+WRITE_PYTHON_DOCS_PER_S = 5_013
 
 
 def write_docs(synthetic, num_docs, request_docs, seed):
@@ -3541,11 +3590,23 @@ def check_write(torch, st, m, dev, label, num_docs, seed,
     seconds["index"] = time.perf_counter() - t0
     published = metastore.list_splits(m.ListSplitsQuery(
         index_uids=[index_uid], states=[m.SplitState.PUBLISHED]))
+    # every default-tokenized text field went through the native builder
+    text = sorted(fm.name for fm in m.HDFS_MAPPER.indexed_fields
+                  if m.writer._native_capable(fm) is not None)
+    unmarked = [(s.metadata.split_id, name) for s in published
+                for name in text
+                if not m.SplitReader(split_storage,
+                                     f"{s.metadata.split_id}.split")
+                .footer.fields[name].get("native")]
+    if not text or unmarked:
+        raise AssertionError(f"write index: not native: {unmarked or text}")
     wal = ingester.shard_throughput_state()
     wal_bytes = sum(os.path.getsize(os.path.join(d, f))
                     for d, _, files in os.walk(wal_dir) for f in files)
     say(f"write index: s={seconds['index']:.3f} docs_per_s="
-        f"{num_docs / seconds['index']:.0f} splits="
+        f"{num_docs / seconds['index']:.0f} (Python path: "
+        f"{WRITE_PYTHON_DOCS_PER_S}) native_fields={text} on every split "
+        f"splits="
         f"{[s.metadata.num_docs for s in published]} counters="
         f"{json.dumps(vars(counters))} wal={json.dumps(wal)} "
         f"wal_bytes_after_truncate={wal_bytes}")
@@ -3590,13 +3651,23 @@ def check_write(torch, st, m, dev, label, num_docs, seed,
     # 5. merge: one compaction pass (planner and supervisor), which must
     # take the array fast path: no doc-level rewrite
     t0 = time.perf_counter()
-    fast, rewrites = [], []
+    fast, rewrites, term_merges = [], [], []
     merge_splits, iter_all_docs = (m.merge_arrays.merge_splits,
                                    m.merge_mod._iter_all_docs)
+    native_merge, python_merge = (m.merge_arrays._merge_inverted_native,
+                                  m.merge_arrays._merge_inverted_python)
 
     def counted_merge(readers, **kw):
         fast.append(len(readers))
         return merge_splits(readers, **kw)
+
+    def counted_native(*args, **kw):
+        term_merges.append(("native", args[2]))
+        return native_merge(*args, **kw)
+
+    def counted_python(*args, **kw):
+        term_merges.append(("python", args[1]))
+        return python_merge(*args, **kw)
 
     def counted_rewrite(reader):
         rewrites.append(reader)
@@ -3604,6 +3675,8 @@ def check_write(torch, st, m, dev, label, num_docs, seed,
 
     m.merge_arrays.merge_splits = counted_merge
     m.merge_mod._iter_all_docs = counted_rewrite
+    m.merge_arrays._merge_inverted_native = counted_native
+    m.merge_arrays._merge_inverted_python = counted_python
     try:
         planner = m.compaction.CompactionPlanner(metastore)
         supervisor = m.compaction.CompactorSupervisor(
@@ -3615,14 +3688,19 @@ def check_write(torch, st, m, dev, label, num_docs, seed,
     finally:
         m.merge_arrays.merge_splits = merge_splits
         m.merge_mod._iter_all_docs = iter_all_docs
+        m.merge_arrays._merge_inverted_native = native_merge
+        m.merge_arrays._merge_inverted_python = python_merge
     seconds["merge"] = time.perf_counter() - t0
     [merged] = metastore.list_splits(m.ListSplitsQuery(
         index_uids=[index_uid], states=[m.SplitState.PUBLISHED]))
     say(f"write merge: s={seconds['merge']:.3f} tasks={done} "
         f"fast_path_inputs={fast} doc_level_rewrites={len(rewrites)} "
+        f"term_merges={json.dumps(term_merges)} "
         f"merged={json.dumps(merged.metadata.to_dict())}")
     if (done != [True] or fast != [WRITE_SPLITS] or rewrites
-            or merged.metadata.num_docs != num_docs - WRITE_REQUEST_DOCS):
+            or merged.metadata.num_docs != num_docs - WRITE_REQUEST_DOCS
+            or not term_merges
+            or any(path != "native" for path, _ in term_merges)):
         raise AssertionError("write merge")
     t0 = time.perf_counter()
     after = search_a("merged")
@@ -5694,6 +5772,339 @@ def check_mesh(torch, st, m, dev, label, iters, rooted,
     return {"launches": path}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the native write path
+
+NATIVE_DOCS = 131_072           # phase 13's split size
+
+
+def _ctypes_ptr(array, ctype):
+    import ctypes
+    return array.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def leafbench_term_count(lib, plan, k) -> int:
+    """`leafbench.leaf_term_aggs`'s count of a posting-space term plan (the
+    flagship's shape), its aggregations and scores off: the native CPU
+    comparator's hits over the plan's own host arrays."""
+    import ctypes
+    import numpy as np
+    from quickwit_tpu_torch.search.plan import PPostings
+    root = plan.root
+    if (not isinstance(root, PPostings)
+            or not plan.array_keys[root.ids_slot].startswith("post.")):
+        raise ValueError("leafbench_term_count: not a term's postings")
+    ids = np.ascontiguousarray(plan.arrays[root.ids_slot], dtype=np.int32)
+    tfs = np.ascontiguousarray(plan.arrays[root.tfs_slot], dtype=np.int32)
+    zeros32, zeros64 = np.zeros(1, np.int32), np.zeros(1, np.int64)
+    present, scores = np.zeros(1, np.uint8), np.zeros(1, np.float32)
+    count = np.zeros(1, np.int64)
+    lib.leaf_term_aggs(
+        _ctypes_ptr(ids, ctypes.c_int32), _ctypes_ptr(tfs, ctypes.c_int32),
+        ctypes.c_int64(len(ids)), _ctypes_ptr(zeros32, ctypes.c_int32),
+        ctypes.c_int64(plan.num_docs),
+        _ctypes_ptr(zeros64, ctypes.c_int64),
+        _ctypes_ptr(present, ctypes.c_uint8), ctypes.c_int64(0),
+        ctypes.c_int64(1), ctypes.c_int32(0),
+        _ctypes_ptr(zeros32, ctypes.c_int32), ctypes.c_int32(0),
+        ctypes.c_double(0.0), ctypes.c_double(1.0), ctypes.c_int32(0),
+        _ctypes_ptr(zeros64, ctypes.c_int64),
+        _ctypes_ptr(zeros64, ctypes.c_int64),
+        _ctypes_ptr(scores, ctypes.c_float),
+        _ctypes_ptr(zeros32, ctypes.c_int32),
+        _ctypes_ptr(count, ctypes.c_int64))
+    return int(count[0])
+
+
+def leafbench_bool_range_count(lib, plan, k) -> int:
+    """`leafbench.leaf_bool_range`'s count of c2's shape (one scored MUST
+    term AND an integer range FILTER, up to two scored SHOULD terms of one
+    field), fed the range bounds in the column's own stored domain."""
+    import ctypes
+    import numpy as np
+    from quickwit_tpu_torch.search.plan import PBool, PPostings, PRange
+    node = plan.root
+    if (not isinstance(node, PBool) or len(node.must) != 1 or node.must_not
+            or len(node.filter) != 1 or len(node.should) > 2
+            or node.minimum_should_match or plan.aggs or k <= 0):
+        raise ValueError("leafbench_bool_range_count: not c2's shape")
+    must, rng, shoulds = node.must[0], node.filter[0], list(node.should)
+    if (not isinstance(must, PPostings) or not must.scoring
+            or not isinstance(rng, PRange)
+            or not all(isinstance(p, PPostings) and p.scoring
+                       for p in shoulds)
+            or len({p.norm_slot for p in shoulds}) > 1):
+        raise ValueError("leafbench_bool_range_count: not c2's shape")
+
+    def arr(slot, dtype=None):
+        a = np.ascontiguousarray(plan.arrays[slot])
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+    def scalar(slot):
+        return np.asarray(plan.scalars[slot]).item()
+
+    values = arr(rng.values_slot)
+    if values.dtype.kind not in "iu" or values.dtype == np.uint64:
+        raise ValueError("leafbench_bool_range_count: not an integer column")
+    values = values.astype(np.int64, copy=False)
+    present = arr(rng.present_slot, np.uint8)
+    lo = int(scalar(rng.lo_slot)) if rng.lo_slot >= 0 else -(2 ** 63)
+    hi = int(scalar(rng.hi_slot)) if rng.hi_slot >= 0 else 2 ** 63 - 1
+    lo += 0 if rng.lo_incl else 1
+    hi -= 0 if rng.hi_incl else 1
+    empty = np.zeros(0, np.int32)
+    lists = [(arr(p.ids_slot, np.int32), arr(p.tfs_slot, np.int32))
+             for p in shoulds] + [(empty, empty)] * (2 - len(shoulds))
+    idfs = [float(scalar(p.idf_slot)) for p in shoulds] + \
+        [0.0] * (2 - len(shoulds))
+    should_norms = (arr(shoulds[0].norm_slot, np.int32) if shoulds
+                    else np.zeros(1, np.int32))
+    should_avg = float(scalar(shoulds[0].avg_len_slot)) if shoulds else 1.0
+    must_ids, must_tfs = arr(must.ids_slot, np.int32), arr(must.tfs_slot,
+                                                           np.int32)
+    scores, docs = np.zeros(k, np.float32), np.zeros(k, np.int32)
+    count = np.zeros(1, np.int64)
+    i32, f32 = ctypes.c_int32, ctypes.c_float
+    lib.leaf_bool_range(
+        _ctypes_ptr(must_ids, i32), _ctypes_ptr(must_tfs, i32),
+        ctypes.c_int64(len(must_ids)),
+        _ctypes_ptr(arr(must.norm_slot, np.int32), i32),
+        ctypes.c_double(float(scalar(must.idf_slot))),
+        ctypes.c_double(float(scalar(must.avg_len_slot))),
+        _ctypes_ptr(lists[0][0], i32), _ctypes_ptr(lists[0][1], i32),
+        ctypes.c_int64(len(lists[0][0])),
+        _ctypes_ptr(lists[1][0], i32), _ctypes_ptr(lists[1][1], i32),
+        ctypes.c_int64(len(lists[1][0])),
+        _ctypes_ptr(should_norms, i32), ctypes.c_double(idfs[0]),
+        ctypes.c_double(idfs[1]), ctypes.c_double(should_avg),
+        _ctypes_ptr(values, ctypes.c_int64),
+        _ctypes_ptr(present, ctypes.c_uint8), ctypes.c_int64(lo),
+        ctypes.c_int64(hi), ctypes.c_int64(plan.num_docs), ctypes.c_int32(k),
+        _ctypes_ptr(scores, f32), _ctypes_ptr(docs, i32),
+        _ctypes_ptr(count, ctypes.c_int64))
+    return int(count[0])
+
+
+def split_arrays(m, data):
+    """A split's arrays as bytes and its fields' footer meta less the
+    native builder's `"native"` marker."""
+    storage = m.RamStorage(m.Uri.parse("ram:///chip_native_compare"))
+    storage.put("s.split", data)
+    reader = m.SplitReader(storage, "s.split")
+    footer = reader.footer
+    return ({name: reader.array(name).tobytes() for name in footer.arrays},
+            {name: {k: v for k, v in meta.items() if k != "native"}
+             for name, meta in footer.fields.items()})
+
+
+def _write_python_path(docs) -> bytes:
+    """A `SplitWriter` split of `docs` over `HDFS_MAPPER` with every field
+    on the Python postings path (a process-pool worker)."""
+    from quickwit_tpu_torch.index import writer
+    from quickwit_tpu_torch.index.synthetic import HDFS_MAPPER
+    writer._native_capable = lambda fm: None
+    split = writer.SplitWriter(HDFS_MAPPER)
+    for doc in docs:
+        split.add_json_doc(doc)
+    return split.finish()
+
+
+def check_native(torch, st, m, dev, label, seed, flagship_aggs) -> dict:
+    """Phase 18: the native write path against the Python one. The
+    131,072 docs of `write_docs(--seed)`, as two splits of 65,536, each
+    written by `SplitWriter` natively (here, timed alone) and then on the
+    Python path (in two worker processes): equal arrays and field meta, apart
+    from the `"native"` marker. The two native splits merged under the
+    timestamp reorder by `merge_splits` natively and on the Python path:
+    equal bytes. Then `leafbench`'s counts over the merged 131,072-doc
+    split for the flagship term and c2's shape equal the port leaf's
+    `num_hits` on the card. Returns the path's launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    docs = write_docs(m.synthetic, NATIVE_DOCS, WRITE_REQUEST_DOCS, seed)
+    half = NATIVE_DOCS // 2
+    halves = [docs[:half], docs[half:]]
+    seconds = {}
+    t0 = time.perf_counter()
+    native_data = []
+    for part in halves:
+        writer = m.SplitWriter(m.HDFS_MAPPER)
+        for doc in part:
+            writer.add_json_doc(doc)
+        native_data.append(writer.finish())
+    seconds["write_native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        python_data = list(pool.map(_write_python_path, halves))
+    seconds["write_python_2_workers"] = time.perf_counter() - t0
+    storage = m.RamStorage(m.Uri.parse("ram:///chip_native"))
+    marked = []
+    for i, (native_bytes, python_bytes) in enumerate(zip(native_data,
+                                                         python_data)):
+        storage.put(f"half{i}.split", native_bytes)
+        marked.append(sorted(
+            name for name, meta in m.SplitReader(storage, f"half{i}.split")
+            .footer.fields.items() if meta.get("native")))
+        if (split_arrays(m, native_bytes) != split_arrays(m, python_bytes)
+                or not marked[i]):
+            raise AssertionError(f"native write: split {i} differs from the "
+                                 f"Python path (native fields {marked[i]})")
+    say(f"[{label}] native write: 2 splits of {half} docs, bytes="
+        f"{[len(d) for d in native_data]} native_s="
+        f"{seconds['write_native']:.3f} docs_per_s="
+        f"{NATIVE_DOCS / seconds['write_native']:.0f} (alone) python path "
+        f"in 2 worker processes after it: s="
+        f"{seconds['write_python_2_workers']:.3f} native_fields={marked} "
+        f"equal_to_python_but_marker=True")
+
+    readers = [m.SplitReader(storage, f"half{i}.split") for i in range(2)]
+    t0 = time.perf_counter()
+    merged = m.merge_arrays.merge_splits(readers, reorder_field="timestamp")
+    seconds["merge_native"] = time.perf_counter() - t0
+    cached = m.native._cached
+    m.native._cached = None          # the Python k-way merge
+    try:
+        t0 = time.perf_counter()
+        merged_python = m.merge_arrays.merge_splits(
+            readers, reorder_field="timestamp")
+        seconds["merge_python"] = time.perf_counter() - t0
+    finally:
+        m.native._cached = cached
+    if merged != merged_python:
+        raise AssertionError("native merge: differs from the Python merge")
+    say(f"[{label}] native merge: 2x{half} docs, bytes={len(merged)} "
+        f"native_s={seconds['merge_native']:.3f} python_s="
+        f"{seconds['merge_python']:.3f} equal_bytes=True")
+
+    # leafbench over the merged split, against the leaf on the card
+    storage.put("merged.split", merged)
+    reader = m.SplitReader(storage, "merged.split")
+    requests = write_requests(m, flagship_aggs)
+    leaf_requests = {
+        "flagship": (dataclasses.replace(requests["flagship"], aggs=None),
+                     leafbench_term_count),
+        "c2_bool_range_top100": (requests["c2_bool_range_top100"],
+                                 leafbench_bool_range_count)}
+    lib = m.native.load_leafbench()
+    k0, l0 = st.score_topk.launches, st.score_topk_lanes.launches
+    counts = {}
+    for name, (req, count) in leaf_requests.items():
+        hits = m.leaf_search_single_split(req, m.HDFS_MAPPER, reader,
+                                          "merged", device=dev).num_hits
+        plan = m.leaf.prepare_plan_only(req, m.HDFS_MAPPER, reader, "merged")
+        counts[name] = (int(hits), count(lib, plan, req.max_hits))
+        if hits <= 0 or counts[name][0] != counts[name][1]:
+            raise AssertionError(f"leafbench {name}: {counts[name]}")
+    launches = {"score_topk": st.score_topk.launches - k0,
+                "score_topk_lanes": st.score_topk_lanes.launches - l0}
+    say(f"native leafbench over the merged split: (leaf num_hits on "
+        f"{dev}, leafbench count) {json.dumps(counts)} equal=True "
+        f"launches={json.dumps(launches)}")
+    say(f"[{label}] native seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()}))
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 19: the deterministic simulation harness
+
+DST_SEEDS = {"smoke": (0, 1, 2, 3), "mixed": (0, 1), "fanout": (0, 1)}
+DST_MESH_SEED = 1               # a fanout seed whose batches shard 4 ways
+DST_MESH_ROWS = 4
+
+
+def check_dst(torch, st, dst, dev, label) -> dict:
+    """Phase 19: `quickwit_tpu_torch/dst` with the cluster's searches on
+    the card. Each scenario over `DST_SEEDS`: every invariant holds and the
+    trace digest equals the same seed's run on the CPU; `fanout` once more
+    with `mesh_devices` of the card repeated 4 times (the mesh route must
+    run), equal to its CPU digest; the planted `QW_DST_BREAK_PUBLISH` bug
+    found by a sweep on the card, shrunk, saved and replayed byte-identically
+    on the card. Returns the path's launches (counted on the card's runs)."""
+    from quickwit_tpu_torch.observability.metrics import MESH_DISPATCHES_TOTAL
+    launches = {"score_topk": 0, "score_topk_lanes": 0}
+    seconds = {}
+
+    def on_card(fn, *args, **kw):
+        k0, l0 = st.score_topk.launches, st.score_topk_lanes.launches
+        try:
+            return fn(*args, **kw)
+        finally:
+            launches["score_topk"] += st.score_topk.launches - k0
+            launches["score_topk_lanes"] += st.score_topk_lanes.launches - l0
+
+    def aside(fn, *args, **kw):
+        saved = st.score_topk.launches, st.score_topk_lanes.launches
+        try:
+            return fn(*args, **kw)
+        finally:
+            st.score_topk.launches, st.score_topk_lanes.launches = saved
+
+    def run(name, seed, device, **kw):
+        return dst.run_scenario(dst.SCENARIOS[name], seed,
+                                break_publish=False, break_wal=False,
+                                device=device, **kw)
+
+    for name, seeds in DST_SEEDS.items():
+        t0 = time.perf_counter()
+        digests = {}
+        for seed in seeds:
+            got = on_card(run, name, seed, dev)
+            want = aside(run, name, seed, "cpu")
+            if not got.ok or got.digest != want.digest:
+                raise AssertionError(
+                    f"dst {name} seed {seed}: ok={got.ok} "
+                    f"{[v.to_dict() for v in got.violations]} digest "
+                    f"{got.digest} cpu {want.digest}")
+            digests[seed] = got.digest
+        seconds[name] = time.perf_counter() - t0
+        say(f"dst {name}: seeds={list(seeds)} invariants="
+            f"{len(dst.SCENARIOS[name].invariants)} ok=True "
+            f"digests_equal_to_cpu=True s={seconds[name]:.3f} "
+            f"digests={json.dumps(digests)}")
+
+    t0 = time.perf_counter()
+    dispatches = MESH_DISPATCHES_TOTAL.get()
+    meshed = on_card(run, "fanout", DST_MESH_SEED, dev,
+                     mesh_devices=[dev] * DST_MESH_ROWS)
+    mesh_dispatches = MESH_DISPATCHES_TOTAL.get() - dispatches
+    want = aside(run, "fanout", DST_MESH_SEED, "cpu")
+    seconds["fanout_mesh"] = time.perf_counter() - t0
+    if not meshed.ok or meshed.digest != want.digest or mesh_dispatches < 1:
+        raise AssertionError(f"dst fanout over a mesh: ok={meshed.ok} "
+                             f"mesh_dispatches={mesh_dispatches}")
+    say(f"dst fanout mesh={DST_MESH_ROWS}x{dev}: seed={DST_MESH_SEED} ok=True"
+        f" mesh_dispatches={mesh_dispatches:.0f} digest_equal_to_cpu=True "
+        f"s={seconds['fanout_mesh']:.3f}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dst_") as out:
+        summary = on_card(dst.sweep, dst.SCENARIOS["smoke"], seeds=200,
+                          artifacts_dir=out, break_publish=True,
+                          break_wal=False, device=dev)
+        entry = summary["violations"][0] if summary["violations"] else {}
+        if entry.get("invariant") != "exactly_once_publish":
+            raise AssertionError(f"dst break_publish not found: {summary}")
+        artifact = dst.load_artifact(entry["artifact"])
+        replays = [on_card(dst.replay, artifact, device=dev)
+                   for _ in range(2)]
+    seconds["break_publish"] = time.perf_counter() - t0
+    if not (all(ok for _, ok in replays)
+            and replays[0][0].trace.events == replays[1][0].trace.events
+            and any(v.invariant == "exactly_once_publish"
+                    for v in replays[0][0].violations)):
+        raise AssertionError("dst break_publish: replay diverged")
+    say(f"dst break_publish: seed={entry['seed']} shrunk "
+        f"{entry['ops_before_shrink']}->{entry['ops_after_shrink']} ops, "
+        f"saved, replayed byte-identically twice on the card "
+        f"s={seconds['break_publish']:.3f}")
+    say(f"[{label}] dst seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in seconds.items()})
+        + f" launches={json.dumps(launches)}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=10_000_000)
@@ -5701,6 +6112,7 @@ def main(argv=None) -> int:
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--so-docs", type=int, default=5_000_000)
     args = parser.parse_args(argv)
+    smoke_t0 = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -5749,11 +6161,17 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
 
-    # 1. build ------------------------------------------------------------
+    # 1. build: the CUDA kernels with nvcc and, at the same time, the host
+    # C++ with g++ ----------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_kernels(build_mod)
-    say(f"[{label}] build: {json.dumps(built)} total_s="
-        f"{time.perf_counter() - t0:.3f}")
+    from concurrent.futures import ThreadPoolExecutor
+    from quickwit_tpu_torch import native
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(build_native, native)
+        built = build_kernels(build_mod)
+        native_built = native_build.result()
+    say(f"[{label}] build: {json.dumps(built)} native={json.dumps(native_built)}"
+        f" total_s={time.perf_counter() - t0:.3f}")
     print_ptxas(build_mod, built)
 
     # 2. kernels vs plain -------------------------------------------------
@@ -6040,6 +6458,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     from quickwit_tpu_torch import compaction, ingest
     from quickwit_tpu_torch.index import merge_arrays, synthetic
+    from quickwit_tpu_torch.index import writer as writer_mod
     from quickwit_tpu_torch.indexing import merge as merge_mod, pipeline
     from quickwit_tpu_torch.indexing.sources import IngestSource
     from quickwit_tpu_torch.ingest.router import INGEST_V2_SOURCE_ID
@@ -6058,6 +6477,7 @@ def main(argv=None) -> int:
             INGEST_V2_SOURCE_ID=INGEST_V2_SOURCE_ID, pipeline=pipeline,
             IngestSource=IngestSource, BEGINNING=BEGINNING,
             merge_arrays=merge_arrays, merge_mod=merge_mod,
+            writer=writer_mod, SplitReader=SplitReader,
             compaction=compaction, gc=gc_mod,
             run_delete_planner=run_delete_planner,
             RootSearcher=RootSearcher, SearchRequest=SearchRequest,
@@ -6102,6 +6522,29 @@ def main(argv=None) -> int:
                         rooted)
     say(f"mesh phase_s={time.perf_counter() - t0:.3f}")
 
+    # 18. the native write path against the Python one, with the counters
+    # zeroed again ---------------------------------------------------------
+    t0 = time.perf_counter()
+    nativized = check_native(
+        torch, st, SimpleNamespace(
+            native=native, writer=writer_mod, merge_arrays=merge_arrays,
+            synthetic=synthetic, SplitWriter=SplitWriter,
+            SplitReader=SplitReader, RamStorage=RamStorage, Uri=Uri,
+            HDFS_MAPPER=HDFS_MAPPER, leaf=leaf_mod,
+            leaf_search_single_split=leaf_search_single_split,
+            SearchRequest=SearchRequest, SortField=SortField,
+            body_term=body_term, parse_query_string=parse_query_string,
+            es_query_to_ast=es_query_to_ast),
+        dev, label, args.seed, requests["flagship"].aggs)
+    say(f"native phase_s={time.perf_counter() - t0:.3f}")
+
+    # 19. the deterministic simulation harness on the card, with the
+    # counters zeroed again ------------------------------------------------
+    t0 = time.perf_counter()
+    from quickwit_tpu_torch import dst
+    simulated = check_dst(torch, st, dst, dev, label)
+    say(f"dst phase_s={time.perf_counter() - t0:.3f}")
+
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
         "name": "score_topk", "route": "cuda",
@@ -6116,8 +6559,10 @@ def main(argv=None) -> int:
         # root phase's one-split nodes (none: its nodes batch), the write
         # phase's searches over one merged split and the sources, serve and
         # gRPC phases' (a node's one-split leaf request, where placement
-        # gives a node one split), and the mesh phase's (none: its scored
-        # requests run the lane kernel on each row)
+        # gives a node one split), the mesh phase's (none: its scored
+        # requests run the lane kernel on each row), the native phase's
+        # flagship leaf call and the dst phase's (its searches sort by
+        # field or match all: none)
         "launches": (launches["score_topk"] + agg_launches["score_topk"]
                      + phrase_launches["score_topk"]
                      + service_launches["score_topk"]
@@ -6129,7 +6574,9 @@ def main(argv=None) -> int:
                      + sourced["launches"]["score_topk"]
                      + served["launches"]["score_topk"]
                      + gridded["launches"]["score_topk"]
-                     + meshed["launches"]["score_topk"]),
+                     + meshed["launches"]["score_topk"]
+                     + nativized["launches"]["score_topk"]
+                     + simulated["launches"]["score_topk"]),
         "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "graph_replay_ms": main_row["graph_replay_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -6153,7 +6600,8 @@ def main(argv=None) -> int:
         # nodes, the scored otel request's on M and its offload workers)
         # and the mesh phase's (one per row of each scored mesh batch, per
         # row of the fused query group and of the service's mesh batches,
-        # and the SQL projection's batch)
+        # and the SQL projection's batch); the native and dst phases
+        # launch none
         "launches": (stacking["launches"]["score_topk_lanes"]
                      + fanout_launches["score_topk_lanes"]
                      + rooted["launches"]["score_topk_lanes"]
@@ -6161,13 +6609,16 @@ def main(argv=None) -> int:
                      + sourced["launches"]["score_topk_lanes"]
                      + served["launches"]["score_topk_lanes"]
                      + gridded["launches"]["score_topk_lanes"]
-                     + meshed["launches"]["score_topk_lanes"]),
+                     + meshed["launches"]["score_topk_lanes"]
+                     + nativized["launches"]["score_topk_lanes"]
+                     + simulated["launches"]["score_topk_lanes"]),
         "max_abs_err": max(lanes_err, stacking["err"], fanout_err),
         **{key: stacking["row"][key] for key in (
             "ms", "graph_replay_ms", "q_solo_graph_replay_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")},
         "shapes": [stacking["row"], fanout_row],
     }]
+    say(f"smoke total_s={time.perf_counter() - smoke_t0:.3f}")
     say(label)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

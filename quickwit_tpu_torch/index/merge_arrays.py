@@ -15,9 +15,10 @@ This replaces the doc-level re-index path (SplitWriter over fetched docs)
 whenever no delete tasks must be applied — the common case — making merge
 cost IO-bound instead of tokenize-bound.
 
-Carried over from the JAX package's `index/merge_arrays.py` with the
-Python k-way term merge only: the native `fastindex.merge_inverted` path
-comes with the port's `native/` package. Both give the same bytes.
+Carried over from the JAX package's `index/merge_arrays.py`: the k-way
+term merge runs natively (`fastindex.merge_inverted`, the port's
+`native/` package) when the extension loads, in Python otherwise. Both
+give the same bytes.
 """
 
 from __future__ import annotations
@@ -205,9 +206,11 @@ class _ArrayCollector:
 def _merge_inverted(builder, name, readers, doc_offsets, num_docs,
                     num_docs_padded, new_order=None,
                     old2new=None) -> dict[str, Any]:
-    """The Python k-way merge lands in a collector so the merged arenas
-    can be post-processed: doc ids remapped under a cluster reorder, each
-    term's postings restored to ascending-doc order (v3 inputs arrive
+    """Dispatch: native k-way merge (fastindex.merge_inverted) when the
+    extension is available, byte-identical Python fallback otherwise.
+    Both paths land in a collector so the merged arenas can be
+    post-processed: doc ids remapped under a cluster reorder, each term's
+    postings restored to ascending-doc order (v3 inputs arrive
     impact-ordered — their concatenation is sorted by NEITHER doc nor
     impact), per-term max tf persisted, and finally the merged field
     re-impact-ordered against its own merged df/fieldnorm/avg_len instead
@@ -215,9 +218,16 @@ def _merge_inverted(builder, name, readers, doc_offsets, num_docs,
     with_positions = any(
         r.has_array(f"inv.{name}.positions.offsets") for r in readers)
     collect = _ArrayCollector()
-    _merge_inverted_python(
-        collect, name, readers, doc_offsets, num_docs_padded,
-        with_positions)
+    from ..native import load_fastindex
+    fastindex = load_fastindex()
+    if fastindex is not None and hasattr(fastindex, "merge_inverted"):
+        _merge_inverted_native(
+            fastindex, collect, name, readers, doc_offsets, num_docs_padded,
+            with_positions)
+    else:
+        _merge_inverted_python(
+            collect, name, readers, doc_offsets, num_docs_padded,
+            with_positions)
     prefix = f"inv.{name}."
     arrays = {full[len(prefix):]: arr for full, arr in collect.arrays.items()}
 
@@ -282,6 +292,54 @@ def _merge_inverted(builder, name, readers, doc_offsets, num_docs,
         # the merged arenas no longer have
         meta.pop("impact", None)
     return meta
+
+
+def _merge_inverted_native(fastindex, builder, name, readers, doc_offsets,
+                           num_docs_padded, with_positions) -> int:
+    inputs = []
+    for i, r in enumerate(readers):
+        if r.term_dict(name) is None:
+            continue
+        has_pos = r.has_array(f"inv.{name}.positions.offsets")
+        inputs.append((
+            np.ascontiguousarray(r.array(f"inv.{name}.terms.blob"),
+                                 dtype=np.uint8),
+            np.ascontiguousarray(r.array(f"inv.{name}.terms.offsets"),
+                                 dtype=np.int64),
+            np.ascontiguousarray(r.array(f"inv.{name}.terms.df"),
+                                 dtype=np.int32),
+            np.ascontiguousarray(r.array(f"inv.{name}.terms.post_off"),
+                                 dtype=np.int64),
+            np.ascontiguousarray(r.array(f"inv.{name}.postings.ids"),
+                                 dtype=np.int32),
+            np.ascontiguousarray(r.array(f"inv.{name}.postings.tfs"),
+                                 dtype=np.int32),
+            np.ascontiguousarray(r.array(f"inv.{name}.positions.offsets"),
+                                 dtype=np.int64) if has_pos else None,
+            np.ascontiguousarray(r.array(f"inv.{name}.positions.data"),
+                                 dtype=np.int32) if has_pos else None,
+            int(doc_offsets[i]),
+        ))
+    (blob, term_offsets, dfs, post_offs, post_lens, ids, tfs,
+     pos_offsets, pos_data) = fastindex.merge_inverted(
+        inputs, num_docs_padded, with_positions)
+    builder.add_array(f"inv.{name}.terms.blob",
+                      np.frombuffer(blob, dtype=np.uint8))
+    builder.add_array(f"inv.{name}.terms.offsets",
+                      np.frombuffer(term_offsets, dtype=np.int64))
+    builder.add_array(f"inv.{name}.terms.df", np.frombuffer(dfs, np.int32))
+    builder.add_array(f"inv.{name}.terms.post_off",
+                      np.frombuffer(post_offs, np.int64))
+    builder.add_array(f"inv.{name}.terms.post_len",
+                      np.frombuffer(post_lens, np.int32))
+    builder.add_array(f"inv.{name}.postings.ids", np.frombuffer(ids, np.int32))
+    builder.add_array(f"inv.{name}.postings.tfs", np.frombuffer(tfs, np.int32))
+    if with_positions:
+        builder.add_array(f"inv.{name}.positions.offsets",
+                          np.frombuffer(pos_offsets, np.int64))
+        builder.add_array(f"inv.{name}.positions.data",
+                          np.frombuffer(pos_data, np.int32))
+    return len(dfs) // 4
 
 
 def _merge_inverted_python(builder, name, readers, doc_offsets,

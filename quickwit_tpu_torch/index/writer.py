@@ -16,12 +16,14 @@ re-targeted at the device array layout of `format.py`:
 - per-field stats (df, avg field length, min/max) land in the footer so BM25
   and range pruning need no extra reads.
 
-Counterpart of the JAX package's `index/writer.py`, host numpy only. Every
-inverted field goes through the Python postings builder: the JAX package's
-native builder (host C++ under `quickwit_tpu/native`) is not carried over.
-For the same docs and mapper the bytes equal the JAX package's Python-path
-bytes (its native path writes the same arrays and adds a `"native"` marker
-to the field's footer meta).
+Counterpart of the JAX package's `index/writer.py`, host numpy and C++.
+TEXT fields with the `default` tokenizer go through the native builder
+(`native/fastindex.cpp`, built with g++ at first use) when it loads, every
+other inverted field through the Python postings builder; with
+`QW_DISABLE_NATIVE=1` or no toolchain every field takes the Python path.
+Both paths write the same arrays; a natively built field adds a
+`"native": true` marker to its footer meta. For the same docs and mapper
+the bytes equal the JAX package's on the same path.
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ ANALYZER_VERSION = 2
 
 
 class _InvertedFieldBuilder:
-    """Postings accumulator of one inverted field."""
+    """Python-path postings accumulator. TEXT fields with the `default`
+    tokenizer go through the native builder (`native/fastindex.cpp`) when it
+    is available — see `_NativeInvertedFieldBuilder`."""
 
     def __init__(self, fm: FieldMapping):
         self.fm = fm
@@ -87,6 +91,65 @@ class _InvertedFieldBuilder:
         # phrases cannot match across value boundaries (tantivy semantics)
         self._pos_base[doc_id] = pos_base + ntokens + 1
         self.total_tokens += ntokens
+
+
+class _NativeInvertedFieldBuilder:
+    """C++ tokenize+postings path (role of tantivy's native segment writer).
+    Buffers raw values and feeds them to fastindex in batches."""
+
+    FLUSH_VALUES = 8192
+
+    def __init__(self, fm: FieldMapping, fastindex):
+        self.fm = fm
+        self.with_positions = fm.record == "position"
+        self.fastindex = fastindex
+        self.handle = fastindex.new_builder(self.with_positions)
+        self._doc_ids: list[int] = []
+        self._texts: list[bytes] = []
+
+    def add_value(self, doc_id: int, value: str) -> None:
+        self._doc_ids.append(doc_id)
+        self._texts.append(value.encode())
+        if len(self._doc_ids) >= self.FLUSH_VALUES:
+            self._flush()
+
+    def _flush(self) -> None:
+        if not self._doc_ids:
+            return
+        doc_ids = np.array(self._doc_ids, dtype=np.int32)
+        blob = b"".join(self._texts)
+        offsets = np.zeros(len(self._texts) + 1, dtype=np.int64)
+        np.cumsum([len(t) for t in self._texts], out=offsets[1:])
+        self.fastindex.add_values(self.handle, doc_ids.tobytes(), blob,
+                                  offsets.tobytes())
+        self._doc_ids.clear()
+        self._texts.clear()
+
+    def finish(self, num_docs_padded: int) -> dict[str, np.ndarray]:
+        self._flush()
+        out = self.fastindex.finish(self.handle, num_docs_padded)
+        arrays = {
+            "terms.blob": np.frombuffer(out[0], dtype=np.uint8),
+            "terms.offsets": np.frombuffer(out[1], dtype=np.int64),
+            "terms.df": np.frombuffer(out[2], dtype=np.int32),
+            "terms.post_off": np.frombuffer(out[3], dtype=np.int64),
+            "terms.post_len": np.frombuffer(out[4], dtype=np.int32),
+            "postings.ids": np.frombuffer(out[5], dtype=np.int32),
+            "postings.tfs": np.frombuffer(out[6], dtype=np.int32),
+            "fieldnorm": np.frombuffer(out[7], dtype=np.int32),
+        }
+        self.total_tokens = int(out[8])
+        if self.with_positions:
+            arrays["positions.offsets"] = np.frombuffer(out[9], dtype=np.int64)
+            arrays["positions.data"] = np.frombuffer(out[10], dtype=np.int32)
+        return arrays
+
+
+def _native_capable(fm: FieldMapping):
+    if fm.type is not FieldType.TEXT or fm.tokenizer != "default":
+        return None
+    from ..native import load_fastindex
+    return load_fastindex()
 
 
 class _DynamicColumnBuilder:
@@ -185,7 +248,10 @@ class SplitWriter:
         self.num_docs = 0
         self._inv: dict[str, Any] = {}
         for fm in doc_mapper.indexed_fields:
-            self._inv[fm.name] = _InvertedFieldBuilder(fm)
+            fastindex = _native_capable(fm)
+            self._inv[fm.name] = (
+                _NativeInvertedFieldBuilder(fm, fastindex) if fastindex
+                else _InvertedFieldBuilder(fm))
         self._cols: dict[str, _ColumnBuilder] = {
             fm.name: _ColumnBuilder(fm) for fm in doc_mapper.fast_fields
         }
@@ -224,14 +290,21 @@ class SplitWriter:
                 dynamic = True
                 fm = self.doc_mapper.dynamic_field(field_name)
                 if fm.indexed and field_name not in self._inv:
-                    self._inv[field_name] = _InvertedFieldBuilder(fm)
+                    fastindex = _native_capable(fm)
+                    self._inv[field_name] = (
+                        _NativeInvertedFieldBuilder(fm, fastindex)
+                        if fastindex else _InvertedFieldBuilder(fm))
             index_values = ([dynamic_canonical(v) for v in values]
                             if dynamic else values)
             if fm.indexed:
                 builder = self._inv[field_name]
-                for value in index_values:
-                    builder.add(doc_id,
-                                self.doc_mapper.tokens_for_field(fm, value))
+                if isinstance(builder, _NativeInvertedFieldBuilder):
+                    for value in index_values:
+                        builder.add_value(doc_id, value)
+                else:
+                    for value in index_values:
+                        builder.add(doc_id,
+                                    self.doc_mapper.tokens_for_field(fm, value))
             if fm.fast:
                 if dynamic:
                     dcol = self._dyn_cols.setdefault(
@@ -325,8 +398,37 @@ class SplitWriter:
         return builder.finish(footer)
 
     def _write_inverted(self, builder: SplitFileBuilder, name: str,
-                        inv: _InvertedFieldBuilder,
-                        num_docs_padded: int) -> dict[str, Any]:
+                        inv: Any, num_docs_padded: int) -> dict[str, Any]:
+        if isinstance(inv, _NativeInvertedFieldBuilder):
+            arrays = inv.finish(num_docs_padded)
+            # per-term max tf: the BM25 score upper bound's input
+            # (search/pruning.py). reduceat over the padded tf arena —
+            # pads are 0 and every segment holds >= 1 real posting
+            if len(arrays["terms.df"]):
+                arrays["terms.max_tf"] = np.maximum.reduceat(
+                    arrays["postings.tfs"],
+                    arrays["terms.post_off"]).astype(np.int32)
+            else:
+                arrays["terms.max_tf"] = np.zeros(0, dtype=np.int32)
+            avg_len = (inv.total_tokens / self.num_docs) if self.num_docs else 0.0
+            impact_meta = apply_impact_ordering(arrays, avg_len,
+                                                self.num_docs)
+            for suffix, arr in arrays.items():
+                builder.add_array(f"inv.{name}.{suffix}", arr)
+            num_terms = len(arrays["terms.df"])
+            meta = {
+                "type": inv.fm.type.value,
+                "tokenizer": inv.fm.tokenizer,
+                "record": inv.fm.record,
+                "indexed": True,
+                "num_terms": num_terms,
+                "total_tokens": inv.total_tokens,
+                "avg_len": avg_len,
+                "native": True,
+            }
+            if impact_meta is not None:
+                meta["impact"] = impact_meta
+            return meta
         terms_sorted = sorted(inv.terms)
         num_terms = len(terms_sorted)
         blob_parts: list[bytes] = []

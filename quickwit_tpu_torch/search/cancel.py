@@ -20,7 +20,6 @@ from typing import Optional
 from ..common import sync
 from ..common.deadline import CancellationToken
 from ..observability import flight
-from ..observability.metrics import SEARCH_CANCEL_TOTAL
 
 
 class QueryCancelRegistry:
@@ -45,15 +44,15 @@ class QueryCancelRegistry:
                 del self._tokens[query_id]
 
     def cancel(self, query_id: str, reason: str = "cancelled by request") -> bool:
-        """Flip the token for `query_id` (counted in
-        qw_search_cancel_total). Returns False when no such query is in
-        flight (already finished, never registered, or unknown id)."""
+        """Flip the token for `query_id`. Returns False when no such query
+        is in flight (already finished, never registered, or unknown id).
+        Counts nothing: the cancel request's handler counts each request
+        in qw_search_cancel_total, live or unknown."""
         with self._lock:
             token = self._tokens.get(query_id)
         if token is None:
             return False
         token.cancel(reason)
-        SEARCH_CANCEL_TOTAL.inc()
         flight.emit("query.cancel", query_id=query_id,
                     attrs={"reason": reason})
         return True

@@ -55,7 +55,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..common.clock import monotonic as _clock_monotonic
 from ..index.format import ZONEMAP_BLOCK
+from ..observability import flight
 from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
 from ..observability.profile import PHASE_EXECUTE, current_profile
 from ..ops import aggs as agg_ops
@@ -989,12 +991,28 @@ def _execute_phase(stage: str):
     return profile.phase(PHASE_EXECUTE, stage=stage)
 
 
+def _readback(copy):
+    """`copy()`, the blocking device→host step of a dispatch, in the
+    profile's readback stage and, when the flight recorder is on, timed
+    into a `dispatch.readback` event (as the JAX package's seam)."""
+    t0 = _clock_monotonic() if flight.recording() else 0.0
+    with _execute_phase("readback"):
+        host = copy()
+    if flight.recording():
+        flight.emit("dispatch.readback", attrs={
+            "dur_ms": round((_clock_monotonic() - t0) * 1000.0, 3)})
+    return host
+
+
+def _note_launch(path: str, lanes: int) -> None:
+    if flight.recording():
+        flight.emit("dispatch.launch", attrs={"path": path, "lanes": lanes})
+
+
 def readback_plan_result(packed: torch.Tensor, spec) -> dict[str, Any]:
     """ONE device→host copy for the entire result tree, unpacked by spec;
     the blocking copy absorbs the device's execution time."""
-    with _execute_phase("readback"):
-        host = packed.cpu().numpy()
-    return _result_dict(host, spec)
+    return _result_dict(_readback(lambda: packed.cpu().numpy()), spec)
 
 
 def _on_device(device, device_arrays: list, caller: str) -> torch.device:
@@ -1014,6 +1032,7 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
     dev = _on_device(device, device_arrays, "execute_plan")
     k = max(0, min(k, plan.num_docs_padded))
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    _note_launch("solo", 1)
     with _execute_phase("dispatch"):
         packed, spec = _get_packed_executor(plan, k, dev)(
             list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
@@ -1185,11 +1204,13 @@ def _dispatch_lanes(base: LoweredPlan, k: int, fn, lanes: list, batch: int,
 
 
 def _readback_lanes(dispatched: LaneDispatch) -> list:
-    with _execute_phase("readback"):
+    def copy():
         if dispatched.event is not None:
             dispatched.event.synchronize()
-        host = (dispatched.host.numpy() if dispatched.host is not None
+        return (dispatched.host.numpy() if dispatched.host is not None
                 else None)
+
+    host = _readback(copy)
     return [_result_dict(host[q], dispatched.spec) if ok else None
             for q, ok in enumerate(dispatched.valid)]
 
@@ -1209,6 +1230,7 @@ def dispatch_plan_multi(plan: LoweredPlan, k: int, device_arrays: list,
                   plan, k, dev)
     arrays = list(device_arrays)
     lanes = [(arrays, tuple(s), int(plan.num_docs)) for s in scalar_sets]
+    _note_launch("multi", batch)
     with _execute_phase("dispatch_multi"):
         return _dispatch_lanes(plan, k, fn,
                                lanes + [None] * (bucket - batch), batch, dev)
@@ -1255,6 +1277,7 @@ def dispatch_plan_stacked(plans, k: int, arrays_list, valid=None,
                 arrays[slot] = donor[slot]
             lanes[q] = (arrays, tuple(plans[q].scalars),
                         int(plans[q].num_docs))
+    _note_launch("stacked", batch)
     with _execute_phase("dispatch_stacked"):
         return _dispatch_lanes(base, k, fn, lanes, batch, dev)
 

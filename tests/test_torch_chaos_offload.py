@@ -12,15 +12,18 @@ seed gives the same per-occurrence fault decisions in each package.
 
 Deterministic and fast (marked `chaos`, runs in tier-1)."""
 
+import random
 import time
 
 import pytest
 
+from quickwit_tpu_torch.common import clock
 from quickwit_tpu_torch.common.faults import FaultInjector, FaultRule
 from quickwit_tpu_torch.indexing import IndexingPipeline, PipelineParams, VecSource
 from quickwit_tpu_torch.metastore import FileBackedMetastore
 from quickwit_tpu_torch.metastore.base import ListSplitsQuery
 from quickwit_tpu_torch.models import DocMapper, FieldMapping, FieldType
+from quickwit_tpu_torch.models import split_metadata
 from quickwit_tpu_torch.models.index_metadata import (
     IndexConfig, IndexMetadata, SourceConfig,
 )
@@ -51,6 +54,7 @@ NUM_SPLITS = 6
 DOCS_PER_SPLIT = 100
 DEADLINE_SLACK_SECS = 1.6
 WORKER_IDS = ("ow-0", "ow-1", "ow-2", "ow-3")
+CORPUS_SEED = 17
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +73,13 @@ def corpus():
         PipelineParams(index_uid="olchaos:01", source_id="src",
                        split_num_docs_target=100, batch_num_docs=50),
         MAPPER, VecSource(docs), metastore, resolver.resolve(split_uri))
-    pipeline.run_to_completion()
+    # split ids are (wall time, seeded draw): a fixed time prefix and a
+    # seeded draw give the same ids, and so the same rendezvous placement
+    # over the workers, in every run (both packages read these files)
+    with pytest.MonkeyPatch.context() as mp, \
+            clock.use_rng(random.Random(CORPUS_SEED)):
+        mp.setattr(split_metadata, "wall_time", lambda: 1_700_000_000.0)
+        pipeline.run_to_completion()
     splits = [SplitIdAndFooter(split_id=s.metadata.split_id,
                                storage_uri=split_uri,
                                num_docs=s.metadata.num_docs)

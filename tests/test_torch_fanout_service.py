@@ -23,7 +23,6 @@ import threading
 import pytest
 import torch
 
-from quickwit_tpu.index import writer as j_writer
 
 from quickwit_tpu_torch.common import deadline as deadline_mod
 from quickwit_tpu_torch.observability import flight
@@ -39,6 +38,7 @@ from quickwit_tpu_torch.search import leaf as t_leaf
 from quickwit_tpu_torch.search import service as t_service
 
 from test_torch_fanout import _widen_ints
+from test_torch_indexing import force_python_paths
 from test_torch_residency import (
     Engine, _hits, assert_same_response, assert_states_close,
 )
@@ -50,7 +50,7 @@ JOIN_TIMEOUT_S = 30.0
 @pytest.fixture(scope="module")
 def engines():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(j_writer, "_native_capable", lambda fm: None)
+        force_python_paths(mp)
         out = []
         for name in ("jax", "torch"):
             engine = Engine(name)

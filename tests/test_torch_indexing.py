@@ -6,9 +6,9 @@ checkpoint advanced, crash replay exactly once, the stage, upload and
 publish faults, file-source checkpoints, a transform) run in both
 packages, each over its own RAM storage and `FileBackedMetastore`, under a
 `FakeClock` and a seeded RNG installed through each package's
-`common/clock.py` (split ids and timestamps come from those seams). The
-JAX writer runs its Python path (`_native_capable` off), as the port's
-writer does. Every scenario must return the same observations in both
+`common/clock.py` (split ids and timestamps come from those seams). Each
+package's writer and merge run their Python paths (`_native_capable` and
+the native module off). Every scenario must return the same observations in both
 packages, and the two packages must have written the same split files and
 the same metastore files, byte for byte.
 
@@ -184,12 +184,16 @@ def listed(splits):
 
 
 def force_python_paths(monkeypatch):
-    """The JAX writer and merge on their Python paths (the port has no
-    native builder): no `"native"` footer marker, the Python k-way merge."""
-    from quickwit_tpu import native
+    """Each package's writer and merge on their Python paths: no
+    `"native"` footer marker, the Python k-way merge
+    (`tests/test_torch_native.py` holds the native paths)."""
+    from quickwit_tpu import native as j_native
     from quickwit_tpu.index import writer as j_writer
-    monkeypatch.setattr(j_writer, "_native_capable", lambda fm: None)
-    monkeypatch.setattr(native, "_cached", None)
+    from quickwit_tpu_torch import native as t_native
+    from quickwit_tpu_torch.index import writer as t_writer
+    for writer, native in ((j_writer, j_native), (t_writer, t_native)):
+        monkeypatch.setattr(writer, "_native_capable", lambda fm: None)
+        monkeypatch.setattr(native, "_cached", None)
 
 
 @pytest.fixture

@@ -51,6 +51,47 @@ def test_importing_every_module_loads_no_jax():
     assert "BAD []" in proc.stdout, proc.stdout
 
 
+BAD_MODULES = (
+    "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+    "             or m.startswith(('jax.', 'jaxlib', 'quickwit_tpu.'))\n"
+    "             or m == 'quickwit_tpu')\n"
+    "print('BAD', bad)\n")
+
+
+def _run_python(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["quickwit_tpu_torch.native",
+                                    "quickwit_tpu_torch.dst"])
+def test_native_and_dst_load_no_jax(module):
+    proc = _run_python(f"import importlib, sys\n"
+                       f"importlib.import_module({module!r})\n"
+                       + BAD_MODULES)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_dst_cli_list_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "quickwit_tpu_torch.dst", "list", "--json"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "smoke" in proc.stdout and "exactly_once_publish" in proc.stdout
+    proc = _run_python(
+        "import runpy, sys\n"
+        "sys.argv = ['quickwit_tpu_torch.dst', 'list']\n"
+        "try:\n"
+        "    runpy.run_module('quickwit_tpu_torch.dst', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n" + BAD_MODULES)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -113,11 +113,9 @@ class Node:
 
 @pytest.fixture(scope="module")
 def nodes():
-    from quickwit_tpu import native
-    from quickwit_tpu.index import writer as j_writer
+    from test_torch_indexing import force_python_paths
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(j_writer, "_native_capable", lambda fm: None)
-        mp.setattr(native, "_cached", None)
+        force_python_paths(mp)
         pair = Node("jax").populate(), Node("torch").populate()
     ids = [sorted(s.metadata.split_id for s in node.metastore
                   .list_splits(node.meta_mod.ListSplitsQuery(

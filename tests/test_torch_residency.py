@@ -146,10 +146,9 @@ class Engine:
 
 def corpus_engines(monkeypatch_module, name: str):
     """(jax, torch) engines with their corpora; the two packages' splits
-    must be byte-identical. The JAX writer's native text builder adds a
-    footer marker, so it is switched off for the comparison."""
-    from quickwit_tpu.index import writer as j_writer
-    monkeypatch_module.setattr(j_writer, "_native_capable", lambda fm: None)
+    must be byte-identical, each package's writer on its Python path."""
+    from test_torch_indexing import force_python_paths
+    force_python_paths(monkeypatch_module)
     out = {}
     for engine_name in ("jax", "torch"):
         engine = Engine(engine_name)

@@ -8,9 +8,9 @@ seeded generator per package, so split ids, index uids, scroll ids and
 timestamps are equal too. Each request first moves both fake clocks one
 second on, as real time would: a v1 ingest names its checkpoint
 partition by the clock, and two ingests at one instant would read as a
-replay. The JAX writer runs on its
-Python paths (the port has no native builder), so split bytes, and with
-them the metastore files, are equal.
+replay. Each package's writer runs on its
+Python paths, so split bytes, and with them the metastore files, are
+equal.
 
 What is left out of a comparison, and why:
 - `elapsed_time_micros`, and ES's `took` (the same clock in
@@ -41,6 +41,8 @@ import uuid
 from types import SimpleNamespace
 
 import pytest
+
+from test_torch_indexing import force_python_paths
 
 PACKAGES = ("quickwit_tpu", "quickwit_tpu_torch")
 SEED = 13
@@ -146,15 +148,6 @@ class _SeededUuid:
 
     def uuid4(self):
         return uuid.UUID(int=self._rng.getrandbits(128), version=4)
-
-
-def force_python_paths(mp):
-    """The JAX writer and merge on their Python paths (the port has no
-    native builder)."""
-    from quickwit_tpu import native
-    from quickwit_tpu.index import writer as j_writer
-    mp.setattr(j_writer, "_native_capable", lambda fm: None)
-    mp.setattr(native, "_cached", None)
 
 
 class Side:
@@ -839,6 +832,29 @@ def test_cancel_route_and_cancel_races_ahead(api):
     assert result.get("cancelled") is None and result["num_hits"] >= 100
     status, _ = api.request("GET", "/api/v1/search/anything")
     assert status != 200
+
+
+@pytest.mark.parametrize("root", PACKAGES)
+def test_rest_cancel_counts_each_delete_once(api, root):
+    """`qw_search_cancel_total` counts each `DELETE /api/v1/search/<id>`
+    once, live or unknown, in `root`'s node, and the two nodes' deltas are
+    equal: the REST handler counts, the registry does not (the port's
+    registry used to count a live cancel a second time)."""
+    deltas = {}
+    for side in api.sides:
+        counter = side.q.mod("observability.metrics").SEARCH_CANCEL_TOTAL
+        live = f"cancel-count-{root}"
+        side.q.mod("search.cancel").CANCEL_REGISTRY.register(
+            live, side.q.mod("common.deadline").CancellationToken())
+        out = []
+        for qid in (live, f"cancel-count-{root}-unknown"):
+            before = counter.get()
+            status, body = side.server._route_inner(
+                "DELETE", f"/api/v1/search/{qid}", {}, b"")
+            out.append((status, body["cancelled"], counter.get() - before))
+        deltas[side.q.root] = out
+    assert deltas[root] == [(200, True, 1), (200, False, 1)]
+    assert deltas["quickwit_tpu_torch"] == deltas["quickwit_tpu"]
 
 
 # --- the golden scenarios (tests/test_golden_scenarios.py) -----------------

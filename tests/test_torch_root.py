@@ -212,9 +212,9 @@ class RootEngine:
 def root_engines(monkeypatch_module, **cluster_kw):
     """(jax, torch) engines, each with `resolver`, `metastore`, `root` and
     `services`. The two packages' split bytes and metastore files must be
-    equal."""
-    from quickwit_tpu.index import writer as j_writer
-    monkeypatch_module.setattr(j_writer, "_native_capable", lambda fm: None)
+    equal, each package's writer on its Python path."""
+    from test_torch_indexing import force_python_paths
+    force_python_paths(monkeypatch_module)
     out = {}
     for name in ("jax", "torch"):
         engine = RootEngine(name)

@@ -2,12 +2,12 @@
 package's: the same docs (or the same `(num_docs, seed)`) give the same
 split bytes.
 
-The port's writer always builds postings in Python; the JAX writer takes
-its native builder (host C++) for default-tokenized text when it is
-available, which writes the same arrays and adds a `"native"` marker to
-the field's footer meta. So the bytes are held against the JAX Python path
-(its native probe switched off), and the arrays against the native path
-where it loads.
+Each package's writer takes its native builder (host C++) for
+default-tokenized text when it loads, which writes the same arrays as the
+Python path and adds a `"native"` marker to the field's footer meta. So
+the bytes are held with both writers on their Python paths (both native
+probes switched off), and the arrays of both native paths against each
+other (`tests/test_torch_native.py` holds the native bytes).
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ from quickwit_tpu.storage.ram import RamStorage as JRamStorage
 from quickwit_tpu_torch.index import SplitWriter as TSplitWriter
 from quickwit_tpu_torch.index.synthetic import synthetic_otel_split as t_otel
 from quickwit_tpu_torch.models import doc_mapper as tdm
+from test_torch_indexing import force_python_paths
 
 
 def _mapper(dm, case):
@@ -101,7 +102,7 @@ def test_writer_bytes_match_jax_python_path(monkeypatch, case, packed,
     monkeypatch.setenv("QW_DISABLE_PACKED", "1" if packed == "raw" else "0")
     monkeypatch.setenv("QW_DISABLE_IMPACT",
                        "1" if impact == "no_impact" else "0")
-    monkeypatch.setattr(j_writer, "_native_capable", lambda fm: None)
+    force_python_paths(monkeypatch)
     want = _write(j_writer.SplitWriter, jdm, case)
     got = _write(TSplitWriter, tdm, case)
     assert got == want
