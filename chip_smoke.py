@@ -458,8 +458,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             repeated 4 times (the mesh route runs), equal to its CPU
             digest; the planted `QW_DST_BREAK_PUBLISH` bug found by a sweep
             on the card, shrunk, saved and replayed byte-identically twice
-            on the card. It prints the seconds per scenario and the
-            launches.
+            on the card; then the PCT race controller (`quickwit_tpu_torch/
+            tools/qwrace`, `dst sweep --pct`): clean sweeps of `fanout`
+            (seeds 0-9) and `mixed` (seeds 0-1) with no finding, each trace
+            digest and schedule digest equal to the same seed's `--pct` run
+            on the CPU, the lock-graph bridge over the card's witness edges
+            conforming, and both planted races (`QW_RACE_BREAK_POOL`,
+            `QW_RACE_BREAK_THRESHOLD`) found within 10 seeds, shrunk, saved
+            and replayed byte-identically twice on the card. It prints the
+            seconds per scenario (`dst ...` and `dst pct ...` lines), the
+            scheduler's steps per seed and the launches.
 
 Its last lines are the card's name and power limit, one JSON object with a
 row per kernel, and `{"ok": true, "device": {...}}`. Without a GPU, or
@@ -6012,6 +6020,12 @@ def check_native(torch, st, m, dev, label, seed, flagship_aggs) -> dict:
 DST_SEEDS = {"smoke": (0, 1, 2, 3), "mixed": (0, 1), "fanout": (0, 1)}
 DST_MESH_SEED = 1               # a fanout seed whose batches shard 4 ways
 DST_MESH_ROWS = 4
+# the race controller's clean sweeps (`dst sweep --pct`) and the planted
+# races of its self-test, each with the object its finding must name
+DST_PCT_SEEDS = {"fanout": tuple(range(10)), "mixed": (0, 1)}
+DST_PCT_PLANTED = {"QW_RACE_BREAK_POOL": "WorkerPool",
+                   "QW_RACE_BREAK_THRESHOLD": "ThresholdBox"}
+DST_PCT_BUDGET = 10             # seeds each planted race must fall within
 
 
 def check_dst(torch, st, dst, dev, label) -> dict:
@@ -6021,7 +6035,14 @@ def check_dst(torch, st, dst, dev, label) -> dict:
     with `mesh_devices` of the card repeated 4 times (the mesh route must
     run), equal to its CPU digest; the planted `QW_DST_BREAK_PUBLISH` bug
     found by a sweep on the card, shrunk, saved and replayed byte-identically
-    on the card. Returns the path's launches (counted on the card's runs)."""
+    on the card. Then the PCT race controller (`quickwit_tpu_torch/tools/
+    qwrace`, `dst sweep --pct`): clean sweeps over `DST_PCT_SEEDS`, each
+    seed with no finding and its trace digest and schedule digest equal to
+    the same seed's `--pct` run on the CPU; the lock-graph bridge over the
+    card's witness edges conforms; each planted race of `DST_PCT_PLANTED`
+    found on the card within `DST_PCT_BUDGET` seeds, shrunk, saved and
+    replayed byte-identically twice on the card. Returns the path's
+    launches (counted on the card's runs)."""
     from quickwit_tpu_torch.observability.metrics import MESH_DISPATCHES_TOTAL
     launches = {"score_topk": 0, "score_topk_lanes": 0}
     seconds = {}
@@ -6099,10 +6120,82 @@ def check_dst(torch, st, dst, dev, label) -> dict:
         f"{entry['ops_before_shrink']}->{entry['ops_after_shrink']} ops, "
         f"saved, replayed byte-identically twice on the card "
         f"s={seconds['break_publish']:.3f}")
+    check_dst_pct(dst, dev, run, on_card, aside, seconds)
     say(f"[{label}] dst seconds: " + json.dumps(
         {k: round(v, 3) for k, v in seconds.items()})
         + f" launches={json.dumps(launches)}")
     return {"launches": launches}
+
+
+def check_dst_pct(dst, dev, run, on_card, aside, seconds) -> None:
+    """The `--pct` part of phase 19 (see `check_dst`); `run`, `on_card` and
+    `aside` are `check_dst`'s, and `seconds` gains a key per part."""
+    from quickwit_tpu_torch.tools.qwrace.bridge import compare
+    from quickwit_tpu_torch.tools.qwrace.harness import PctRace
+
+    def race_event(result) -> dict:
+        return next(e for e in result.trace.events if e["kind"] == "race")
+
+    card_race = PctRace(break_flags={})     # unions the card's witness edges
+    for name, seeds in DST_PCT_SEEDS.items():
+        t0 = time.perf_counter()
+        steps = {}
+        for seed in seeds:
+            got = on_card(run, name, seed, dev, race=card_race)
+            want = aside(run, name, seed, "cpu", race=PctRace(break_flags={}))
+            got_race, want_race = race_event(got), race_event(want)
+            if not got.ok or got_race["findings"] or \
+                    got.digest != want.digest or \
+                    got_race["schedule_digest"] != \
+                    want_race["schedule_digest"]:
+                raise AssertionError(
+                    f"dst pct {name} seed {seed}: ok={got.ok} "
+                    f"{[v.to_dict() for v in got.violations]} digest "
+                    f"{got.digest} cpu {want.digest} race {got_race} "
+                    f"cpu {want_race}")
+            steps[seed] = got_race["steps"]
+        seconds[f"pct_{name}"] = time.perf_counter() - t0
+        say(f"dst pct {name}: seeds={list(seeds)} findings=0 ok=True "
+            f"digests_equal_to_cpu=True schedule_digests_equal_to_cpu=True "
+            f"s={seconds[f'pct_{name}']:.3f} steps={json.dumps(steps)}")
+
+    report = compare(card_race.witness_union)
+    if not report["conforms"]:
+        raise AssertionError(f"dst pct bridge: scope gaps {report['gaps']}")
+    say(f"dst pct bridge: witnessed={report['witnessed']} "
+        f"static={report['static_edges']} "
+        f"declared_used={len(report['declared_used'])} "
+        f"anonymous={len(report['anonymous'])} gaps=0 conforms=True")
+
+    for flag, obj in DST_PCT_PLANTED.items():
+        t0 = time.perf_counter()
+        race = PctRace(break_flags={flag: True})
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_race_") as out:
+            summary = on_card(dst.sweep, dst.SCENARIOS["fanout"],
+                              seeds=DST_PCT_BUDGET, artifacts_dir=out,
+                              race=race, device=dev)
+            entry = summary["violations"][0] if summary["violations"] else {}
+            details = entry.get("violation", {}).get("details", {})
+            if entry.get("invariant") != "data_race" or \
+                    not details.get("object", "").startswith(obj):
+                raise AssertionError(f"dst pct {flag} not found: {summary}")
+            artifact = dst.load_artifact(entry["artifact"])
+        if os.environ.get(flag):
+            raise AssertionError(f"dst pct {flag}: the switch leaked")
+        replays = [on_card(dst.replay, artifact, device=dev)
+                   for _ in range(2)]
+        seconds[f"pct_{flag}"] = time.perf_counter() - t0
+        if not (all(ok for _, ok in replays)
+                and replays[0][0].trace.events == replays[1][0].trace.events
+                and replays[0][0].digest == artifact["trace_digest"]
+                and any(v.invariant == "data_race"
+                        for v in replays[0][0].violations)):
+            raise AssertionError(f"dst pct {flag}: replay diverged")
+        say(f"dst pct {flag}: seed={entry['seed']} on "
+            f"{details['object']}.{details['field']} shrunk "
+            f"{entry['ops_before_shrink']}->{entry['ops_after_shrink']} ops, "
+            f"saved, replayed byte-identically twice on the card "
+            f"s={seconds[f'pct_{flag}']:.3f}")
 
 
 def main(argv=None) -> int:

@@ -29,14 +29,12 @@ two runs of the same seed produce bit-identical traces.
 """
 
 from .artifact import load_artifact, save_artifact
-from .harness import (RaceControllerUnavailable, RunResult, replay,
-                      run_scenario, shrink, sweep)
+from .harness import RunResult, replay, run_scenario, shrink, sweep
 from .invariants import INVARIANTS, Violation
 from .scenario import SCENARIOS, Scenario
 
 __all__ = [
     "INVARIANTS",
-    "RaceControllerUnavailable",
     "RunResult",
     "SCENARIOS",
     "Scenario",

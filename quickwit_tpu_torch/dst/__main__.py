@@ -6,11 +6,15 @@
   additionally replays every trace against the qwmc checkpoint model
   (``tools.qwmc.conformance``): a trace that is not a behavior of the
   exhaustively-checked model fails the sweep even if no runtime
-  invariant fired. ``--pct`` (the qwrace PCT scheduler) gates only the
-  JAX package's sync seam: here it exits 2 with `RaceControllerUnavailable`.
+  invariant fired. ``--pct`` layers the qwrace PCT scheduler
+  (``quickwit_tpu_torch.tools.qwrace``) under every run: thread
+  interleavings become seed-deterministic and a FastTrack happens-before
+  detector reports data races / deadlocks as regular DST violations
+  (shrunk and persisted like any other).
 - ``replay path/to/artifact.json [--json]`` re-executes an artifact and
   exits 1 unless the trace digest matches byte-for-byte AND the recorded
-  violation fires again (2 for an artifact recorded under ``--pct``).
+  violation fires again (an artifact recorded under ``--pct`` re-runs
+  under the controller its ``race`` section describes).
 - ``list`` prints the scenario and invariant catalogs.
 
 ``sweep`` and ``replay`` run the cluster's searches on ``--device``
@@ -25,22 +29,24 @@ import os
 import sys
 
 from .artifact import load_artifact
-from .harness import (RaceControllerUnavailable, replay, scenario_by_name,
-                      sweep)
+from .harness import replay, scenario_by_name, sweep
 from .invariants import INVARIANTS
 from .scenario import SCENARIOS
 
 
 def _cmd_sweep(args: argparse.Namespace) -> int:
     scenario = scenario_by_name(args.scenario)
+    race = None
     if args.pct:
-        raise RaceControllerUnavailable("--pct")
+        # lazy: a sweep without --pct never loads the controller
+        from ..tools.qwrace.harness import PctRace
+        race = PctRace(depth=args.pct_depth, horizon=args.pct_horizon)
     summary = sweep(scenario, seeds=args.seeds, start_seed=args.start_seed,
                     artifacts_dir=args.artifacts_dir,
                     shrink_violations=not args.no_shrink,
                     stop_on_first=not args.keep_going,
                     conformance=args.conformance,
-                    device=args.device)
+                    race=race, device=args.device)
     if args.json:
         print(json.dumps(summary, sort_keys=True, indent=2))
     else:
@@ -135,8 +141,18 @@ def main(argv: list[str] | None = None) -> int:
                          help="also replay every trace against the qwmc "
                               "checkpoint model (refinement check)")
     p_sweep.add_argument("--pct", action="store_true",
-                         help="the qwrace PCT scheduler (tools/qwrace): "
-                              "JAX package only, exits 2 here")
+                         help="run every seed under the qwrace PCT "
+                              "scheduler: randomized-but-deterministic "
+                              "thread interleavings with happens-before "
+                              "race detection (tools/qwrace)")
+    p_sweep.add_argument("--pct-depth", type=int, default=3,
+                         help="PCT bug depth d: d-1 priority change "
+                              "points per schedule (default 3)")
+    p_sweep.add_argument("--pct-horizon", type=int, default=4096,
+                         help="PCT horizon k: change points are drawn "
+                              "from the first k scheduling decisions; "
+                              "match to trace length for deep "
+                              "deadlock-order bugs (default 4096)")
     p_sweep.add_argument("--json", action="store_true")
     p_sweep.set_defaults(fn=_cmd_sweep)
 
@@ -155,11 +171,7 @@ def main(argv: list[str] | None = None) -> int:
     p_list.set_defaults(fn=_cmd_list)
 
     args = parser.parse_args(argv)
-    try:
-        return args.fn(args)
-    except RaceControllerUnavailable as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    return args.fn(args)
 
 
 if __name__ == "__main__":

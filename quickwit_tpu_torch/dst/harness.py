@@ -23,10 +23,9 @@ seed, op list, fault plan) give the same digest.
 
 `race` is duck-typed: a controller with `begin(seed)`, `to_dict()` and a
 per-run object (`activate`, `before_op`, `detector`, `abort_exc`,
-`finalize`, `violations`, `trace_event`), as the JAX package's
-`tools.qwrace.PctRace`. No such controller gates this package's
-`common/sync.py` yet, so a replay artifact that names a race raises
-`RaceControllerUnavailable`.
+`finalize`, `violations`, `trace_event`): this package's
+`tools.qwrace.PctRace`, which gates `common/sync.py`. A replay artifact
+that names a race rebuilds its controller through `race_from_dict`.
 """
 
 from __future__ import annotations
@@ -56,17 +55,6 @@ _VIRTUAL_EPOCH = 1_700_000_000.0
 
 def _env_flag(name: str) -> bool:
     return os.environ.get(name, "").strip().lower() in ("1", "true", "yes")
-
-
-class RaceControllerUnavailable(RuntimeError):
-    """A run asked for the PCT race scheduler, which gates the JAX
-    package's `common.sync` seam (`tools/qwrace`) and not this one's."""
-
-    def __init__(self, what: str):
-        super().__init__(
-            f"{what} needs the PCT race controller; tools/qwrace drives only "
-            "the JAX package's common.sync seam, and this package has no "
-            "controller over its own common/sync.py yet")
 
 
 @dataclass
@@ -110,8 +98,8 @@ def run_scenario(scenario: Scenario, seed: int,
     `device` is where every search of the cluster runs (default `cuda`),
     `mesh_devices` each node's device grid (default none: no mesh).
 
-    `race` is a PCT race controller (or None; see the module docstring):
-    when set, the run executes under the gated PCT scheduler — every thread and lock the
+    `race` is a `tools.qwrace.PctRace` controller (or None): when set,
+    the run executes under the gated PCT scheduler — every thread and lock the
     cluster builds goes through the `common.sync` seam, interleavings are
     explored at sync-op granularity inside each (still serial) DST op, and
     happens-before race findings become ordinary `Violation`s so shrink /
@@ -377,17 +365,21 @@ def replay(artifact: dict[str, Any], device=None,
     """Re-execute a replay artifact from its contents alone (on `device`,
     default `cuda`). Returns the fresh `RunResult` and whether its trace
     digest matches the recorded one byte-for-byte. An artifact recorded
-    under a race controller raises `RaceControllerUnavailable`."""
+    under a race controller re-runs under the controller its `race`
+    section describes."""
     scenario = Scenario.from_dict(artifact["scenario"])
     flags = artifact.get("break_flags", {})
+    race = None
     if artifact.get("race"):
-        raise RaceControllerUnavailable("replaying a race artifact")
+        # lazy: the controller is only loaded for a race artifact
+        from ..tools.qwrace.harness import race_from_dict
+        race = race_from_dict(artifact["race"])
     result = run_scenario(
         scenario, int(artifact["seed"]), ops=list(artifact["ops"]),
         fault_plan=artifact.get("fault_plan"),
         break_publish=bool(flags.get("publish", False)),
         break_wal=bool(flags.get("wal", False)),
-        device=device, mesh_devices=mesh_devices)
+        race=race, device=device, mesh_devices=mesh_devices)
     ok = result.digest == artifact["trace_digest"]
     # artifacts that embed a flight-recorder tail must re-derive it
     # byte-identically too — the runtime timeline is part of the repro

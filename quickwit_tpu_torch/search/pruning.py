@@ -38,6 +38,7 @@ Soundness per sort kind:
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Any, Callable, Optional
 
@@ -68,6 +69,13 @@ class ThresholdBox:
         self._value = seed
         self._lock = sync.lock("ThresholdBox._lock")
         sync.register_shared(self, "ThresholdBox")
+        # qwrace planted race (mandatory self-test): with
+        # QW_RACE_BREAK_THRESHOLD set, update() does its read-modify-write
+        # WITHOUT the box lock — the exact bug the monotone-publish
+        # contract above exists to prevent
+        self._break_unlocked = os.environ.get(
+            "QW_RACE_BREAK_THRESHOLD", "").strip().lower() in (
+                "1", "true", "yes")
 
     def get(self) -> Optional[float]:
         with self._lock:
@@ -76,6 +84,11 @@ class ThresholdBox:
 
     def update(self, value: Optional[float]) -> None:
         if value is None:
+            return
+        if self._break_unlocked:
+            sync.note_write(self, "value")
+            if self._value is None or value > self._value:
+                self._value = value
             return
         with self._lock:
             sync.note_write(self, "value")

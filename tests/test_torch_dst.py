@@ -14,8 +14,9 @@ nothing stripped from any trace:
   shrunk, saved and replayed byte-identically, twice, each shrunk artifact
   equal to the JAX package's; the CLI's exit codes as
   `tests/test_dst_{smoke,harness}.py` hold them;
-- `--pct` and a race artifact raise `RaceControllerUnavailable`: the PCT
-  controller (`tools/qwrace`) gates only the JAX package's sync seam;
+- `--pct` runs the port's PCT race controller
+  (`quickwit_tpu_torch/tools/qwrace`, held against `tools/qwrace` in
+  `tests/test_torch_qwrace.py`), and a race artifact replays through it;
 - the qwmc conformance check (`--conformance`, stdlib only) gives the
   same verdicts in both packages.
 """
@@ -29,10 +30,9 @@ import pytest
 import torch
 
 from quickwit_tpu_torch.dst import (
-    SCENARIOS, RaceControllerUnavailable, load_artifact, replay,
-    run_scenario, save_artifact, sweep)
+    SCENARIOS, load_artifact, replay, run_scenario, save_artifact, sweep)
 from quickwit_tpu_torch.dst.__main__ import main as dst_main
-from quickwit_tpu_torch.dst.trace import blake2b_digest, canonical_json
+from quickwit_tpu_torch.dst.trace import canonical_json
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -306,25 +306,33 @@ def test_cli_break_sweep_and_replay_exit_codes(tmp_path, capsys,
     assert out["digest_match"] is True and out["violation_reproduced"]
 
 
-def test_pct_and_race_artifacts_raise_the_documented_error(tmp_path,
-                                                           capsys):
+def test_pct_sweeps_and_a_raced_artifact_replays(tmp_path, capsys,
+                                                 monkeypatch):
     rc = dst_main(["sweep", "--scenario", "fanout", "--seeds", "1", "--pct",
-                   "--device", CPU])
-    assert rc == 2
-    assert "tools/qwrace" in capsys.readouterr().err
-    summary = sweep(SCENARIOS["smoke"], seeds=200, break_wal=True,
-                    artifacts_dir=str(tmp_path), device=CPU)
-    artifact = load_artifact(summary["violations"][0]["artifact"])
-    artifact["race"] = {"depth": 3, "horizon": 4096}
-    artifact["digest"] = blake2b_digest(
-        {k: v for k, v in artifact.items()
-         if k not in ("version", "kind", "digest")})
-    with pytest.raises(RaceControllerUnavailable, match="tools/qwrace"):
-        replay(artifact, device=CPU)
-    raced = tmp_path / "raced.json"
-    save_artifact(artifact, str(raced))
-    assert dst_main(["replay", str(raced), "--device", CPU]) == 2
-    assert "tools/qwrace" in capsys.readouterr().err
+                   "--device", CPU, "--json"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["ok"] is True and out["passed"] == [0]
+    assert out["race"]["pct"]["depth"] == 3
+    monkeypatch.setenv("QW_RACE_BREAK_POOL", "1")
+    rc = dst_main(["sweep", "--scenario", "fanout", "--seeds", "3", "--pct",
+                   "--artifacts-dir", str(tmp_path), "--device", CPU,
+                   "--json"])
+    assert rc == 1
+    entry = json.loads(capsys.readouterr().out)["violations"][0]
+    assert entry["invariant"] == "data_race"
+    monkeypatch.delenv("QW_RACE_BREAK_POOL")
+    artifact = load_artifact(entry["artifact"])
+    assert artifact["race"]["pct"]["break_flags"] == \
+        {"QW_RACE_BREAK_POOL": True}
+    result, digest_match = replay(artifact, device=CPU)
+    assert digest_match and result.digest == artifact["trace_digest"]
+    assert any(v.invariant == "data_race" for v in result.violations)
+    assert dst_main(["replay", entry["artifact"], "--device", CPU,
+                     "--json"]) == 0
+    replayed = json.loads(capsys.readouterr().out)
+    assert replayed["digest_match"] and replayed["violation_reproduced"]
+    assert replayed["digest"] == artifact["trace_digest"]
 
 
 def test_entry_points_run_on_cuda_unless_asked(monkeypatch):
