@@ -91,6 +91,10 @@ class Tracer:
         if processor in self._processors:
             self._processors.remove(processor)
 
+    def has_processors(self) -> bool:
+        """Whether a finished span would reach anything."""
+        return bool(self._processors)
+
     # --- context -----------------------------------------------------------
     def _stack(self) -> list[SpanData]:
         stack = getattr(self._tls, "stack", None)

@@ -93,7 +93,8 @@ from ..observability.metrics import (
 )
 from ..observability.profile import (
     PHASE_EXECUTE, PHASE_PLAN_BUILD, PHASE_STAGING_CACHE_HIT,
-    PHASE_STAGING_UPLOAD, PHASE_TOPK_MERGE, profile_add, profiled_phase,
+    PHASE_STAGING_UPLOAD, PHASE_TOPK_MERGE, note_dispatch, profile_add,
+    profiled_phase,
 )
 from ..ops import topk as topk_ops
 from ..ops.kernels.build import KernelError
@@ -238,10 +239,9 @@ def build_batch(request: SearchRequest, doc_mapper: DocMapper,
     runs."""
     # plan_build covers per-split lowering (storage byte-range IO surfaces
     # as storage_read_* counters) plus the uniformity checks
-    with profiled_phase(PHASE_PLAN_BUILD) as rec:
+    with profiled_phase(PHASE_PLAN_BUILD, stage="batch") as rec:
         if rec is not None:
             rec["splits"] = len(split_ids)
-            rec["stage"] = "batch"
         return _build_batch(request, doc_mapper, readers, split_ids,
                             pad_to_splits, absence_sink, sort_value_threshold)
 
@@ -765,10 +765,9 @@ def stage_device_inputs(batch: SplitBatch, device=None, budget=None,
     cache_key = mesh if mesh is not None else str(dev)
     lanes = cache.get(cache_key)
     if lanes is not None:
-        with profiled_phase(PHASE_STAGING_CACHE_HIT) as rec:
+        with profiled_phase(PHASE_STAGING_CACHE_HIT, stage="batch") as rec:
             if rec is not None:
                 rec["bytes"] = 0
-                rec["stage"] = "batch"
         flight.emit("staging.resident_hit", attrs={"stage": "batch"})
         return lanes
     devs = _lane_devices(batch, mesh, dev)
@@ -781,11 +780,10 @@ def stage_device_inputs(batch: SplitBatch, device=None, budget=None,
         lanes, staged, resident_slots = _stage_through_budget(
             batch, devs, keys, budget, store)
     else:
-        with profiled_phase(PHASE_STAGING_UPLOAD) as rec:
+        with profiled_phase(PHASE_STAGING_UPLOAD, stage="batch") as rec:
             lanes, staged = _stage_lanes(batch.plans, devs)
             if rec is not None:
                 rec["bytes"] = staged
-                rec["stage"] = "batch"
         STAGING_BYTES_TOTAL.inc(staged)
         profile_add("staging_bytes", staged)
     if staged and flight.recording():
@@ -869,9 +867,8 @@ def dispatch_batch(batch: SplitBatch, request: SearchRequest,
                     attrs={"path": "batch", "splits": batch.n_splits,
                            "mesh": mesh.size if mesh is not None else 0})
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
-    with profiled_phase(PHASE_EXECUTE) as rec:
-        if rec is not None:
-            rec["stage"] = "dispatch_batch"
+    note_dispatch()
+    with profiled_phase(PHASE_EXECUTE, stage="dispatch_batch"):
         tree = (mesh_batch_fn(batch, k, mesh)(lanes) if mesh is not None
                 else batch_fn(batch, k)(lanes, out_dev))
         leaves: list[torch.Tensor] = []
@@ -887,9 +884,7 @@ def dispatch_batch(batch: SplitBatch, request: SearchRequest,
 
 def _await(dispatched: BatchDispatch, path: str) -> np.ndarray:
     t0 = _clock_monotonic() if flight.recording() else 0.0
-    with profiled_phase(PHASE_EXECUTE) as rec:
-        if rec is not None:
-            rec["stage"] = "readback"
+    with profiled_phase(PHASE_EXECUTE, stage="readback"):
         if dispatched.event is not None:
             dispatched.event.synchronize()
         host = dispatched.host.numpy() if dispatched.host is not None \
@@ -944,7 +939,7 @@ def _decode_merged(batch: SplitBatch, k: int, top_vals, top_vals2,
                 batch.readers[si].column_values(field)[0]
         return exact_cols[(si, field)]
 
-    with profiled_phase(PHASE_TOPK_MERGE) as rec:
+    with profiled_phase(PHASE_TOPK_MERGE, stage="batch") as rec:
         for i in range(min(len(top_vals), num_hits)):
             internal = float(top_vals[i])
             if internal == float("-inf"):
@@ -972,7 +967,6 @@ def _decode_merged(batch: SplitBatch, k: int, top_vals, top_vals2,
         intermediate = _intermediate_aggs(batch.template, list(merged_aggs))
         if rec is not None:
             rec["hits"] = len(hits)
-            rec["stage"] = "batch"
     real_splits = sum(1 for s in batch.split_ids if s)
     return LeafSearchResponse(
         num_hits=num_hits,
@@ -1180,9 +1174,8 @@ def dispatch_query_group(batches: list, request: SearchRequest,
                     attrs={"path": "query_group", "lanes": q, "live": live,
                            "mesh": mesh.size if mesh is not None else 0})
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
-    with profiled_phase(PHASE_EXECUTE) as rec:
-        if rec is not None:
-            rec["stage"] = "dispatch_query_group"
+    note_dispatch()
+    with profiled_phase(PHASE_EXECUTE, stage="dispatch_query_group"):
         trees = (group_mesh_fn(batches, k, mesh)(group_lanes)
                  if mesh is not None
                  else group_fn(batches, k)(group_lanes, dev))

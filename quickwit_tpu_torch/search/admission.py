@@ -116,7 +116,7 @@ class HbmBudget:
             timeout_secs = min(timeout_secs,
                                query_deadline.clamp(timeout_secs))
         deadline = time.monotonic() + timeout_secs
-        t_admit = time.monotonic()
+        t_admit = time.perf_counter()
         # seam twin of t_admit: the flight event's wait must be virtual
         # time under DST (byte-identical artifact tails), real time live
         ft_admit = _seam_monotonic()
@@ -157,7 +157,7 @@ class HbmBudget:
                         "query needs %d bytes against a %d-byte HBM budget; "
                         "admitted alone", new_bytes, self.budget)
         except BaseException:
-            wait = time.monotonic() - t_admit
+            wait = time.perf_counter() - t_admit
             OVERLOAD.note_wait(wait)
             if profile is not None:
                 # shed while queued: the partial wait is still reported
@@ -166,7 +166,7 @@ class HbmBudget:
                     start=t_admit, bytes=new_bytes, aborted=True)
                 profile.mark_partial("shed: HBM admission queue wait")
             raise
-        wait = time.monotonic() - t_admit
+        wait = time.perf_counter() - t_admit
         OVERLOAD.note_wait(wait)
         GLOBAL_TENANCY.note_admission_wait(tenant.tenant_id, wait)
         GLOBAL_TENANCY.note_staged_bytes(tenant.tenant_id, new_bytes)

@@ -68,6 +68,7 @@ from ..observability.metrics import (
 )
 from ..observability.profile import (
     PHASE_BATCHER_QUEUE, PHASE_QBATCH_GROUP, current_profile,
+    shared_dispatch,
 )
 from ..tenancy.context import effective_tenant
 from ..tenancy.overload import OVERLOAD, OverloadShed
@@ -146,7 +147,7 @@ class _Pending:
         self.result: Any = None
         self.error: Exception | None = None
         self.deadline = deadline
-        self.enqueued_at = time.monotonic()
+        self.enqueued_at = time.perf_counter()
         # each rider's ambient QueryProfile (or None): the leader reports
         # every rider's queue wait into ITS profile at dispatch time
         self.profile = profile
@@ -231,7 +232,7 @@ class QueryBatcher:
         if me.profile is not None:
             me.profile.record_phase(
                 PHASE_BATCHER_QUEUE,
-                time.monotonic() - me.enqueued_at,
+                time.perf_counter() - me.enqueued_at,
                 start=me.enqueued_at, aborted=True)
             me.profile.mark_partial(reason)
 
@@ -347,7 +348,7 @@ class QueryBatcher:
                              and p.cancel.cancelled]
                 alive = [p for p in batch
                          if p not in expired and p not in cancelled]
-                now = time.monotonic()
+                now = time.perf_counter()
                 for pending in expired:
                     SEARCH_SHED_TOTAL.inc(stage="batcher_dispatch")
                     flight.emit("batcher.shed",
@@ -381,7 +382,7 @@ class QueryBatcher:
                         grouped = stacking and len(batch) > 1
                         phase = (PHASE_QBATCH_GROUP if grouped
                                  else PHASE_BATCHER_QUEUE)
-                        now = time.monotonic()
+                        now = time.perf_counter()
                         for pending in alive:
                             wait = now - pending.enqueued_at
                             SEARCH_BATCHER_QUEUE_WAIT.observe(wait)
@@ -418,13 +419,17 @@ class QueryBatcher:
                             alive[0].result = result
                             alive[0].event.set()
                         elif grouped:
-                            readback_targets, readback_fn = \
-                                self._dispatch_group(
-                                    batch, alive, k, fault_injector, device)
+                            with shared_dispatch(p.profile for p in alive):
+                                readback_targets, readback_fn = \
+                                    self._dispatch_group(batch, alive, k,
+                                                         fault_injector,
+                                                         device)
                         else:
-                            dispatched = executor.dispatch_plan_multi(
-                                plan, k, device_arrays,
-                                [p.scalars for p in alive], device=device)
+                            with shared_dispatch(p.profile for p in alive):
+                                dispatched = executor.dispatch_plan_multi(
+                                    plan, k, device_arrays,
+                                    [p.scalars for p in alive],
+                                    device=device)
                             readback_fn = (lambda d=dispatched:
                                            executor.readback_plan_multi(d))
                 except Exception as exc:  # noqa: BLE001 - fan to waiters

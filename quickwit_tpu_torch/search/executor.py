@@ -48,7 +48,6 @@ correctly rounded quotient.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import replace as dc_replace
 from typing import Any
 
@@ -59,7 +58,8 @@ from ..common.clock import monotonic as _clock_monotonic
 from ..index.format import ZONEMAP_BLOCK
 from ..observability import flight
 from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
-from ..observability.profile import PHASE_EXECUTE, current_profile
+from ..observability.profile import (
+    PHASE_EXECUTE, note_dispatch, profiled_phase)
 from ..ops import aggs as agg_ops
 from ..ops import masks as mask_ops
 from ..ops import topk as topk_ops
@@ -978,25 +978,12 @@ def _result_dict(host: np.ndarray, spec) -> dict[str, Any]:
     }
 
 
-def _execute_phase(stage: str):
-    """The profile's execute phase for one stage of a dispatch (the JAX
-    executor's names: `dispatch`, `dispatch_multi`, `dispatch_stacked`,
-    `readback`); a no-op context when no profile is bound. The JAX
-    executor names a dispatch that traced and compiled its program
-    `compile`; the port compiles nothing at query time, so every dispatch
-    is `execute`, as a warm JAX dispatch is."""
-    profile = current_profile()
-    if profile is None:
-        return contextlib.nullcontext()
-    return profile.phase(PHASE_EXECUTE, stage=stage)
-
-
 def _readback(copy):
     """`copy()`, the blocking device→host step of a dispatch, in the
     profile's readback stage and, when the flight recorder is on, timed
     into a `dispatch.readback` event (as the JAX package's seam)."""
     t0 = _clock_monotonic() if flight.recording() else 0.0
-    with _execute_phase("readback"):
+    with profiled_phase(PHASE_EXECUTE, stage="readback"):
         host = copy()
     if flight.recording():
         flight.emit("dispatch.readback", attrs={
@@ -1032,8 +1019,9 @@ def execute_plan(plan: LoweredPlan, k: int, device_arrays: list,
     dev = _on_device(device, device_arrays, "execute_plan")
     k = max(0, min(k, plan.num_docs_padded))
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    note_dispatch()
     _note_launch("solo", 1)
-    with _execute_phase("dispatch"):
+    with profiled_phase(PHASE_EXECUTE, stage="dispatch"):
         packed, spec = _get_packed_executor(plan, k, dev)(
             list(device_arrays), tuple(plan.scalars), int(plan.num_docs))
     return readback_plan_result(packed, spec)
@@ -1224,6 +1212,7 @@ def dispatch_plan_multi(plan: LoweredPlan, k: int, device_arrays: list,
     dev = _on_device(device, device_arrays, "dispatch_plan_multi")
     k = max(0, min(k, plan.num_docs_padded))
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    note_dispatch()
     batch = len(scalar_sets)
     bucket = _batch_bucket(batch)
     fn = _program(_MULTI_CACHE, multi_program_cache_key(plan, k, bucket),
@@ -1231,7 +1220,7 @@ def dispatch_plan_multi(plan: LoweredPlan, k: int, device_arrays: list,
     arrays = list(device_arrays)
     lanes = [(arrays, tuple(s), int(plan.num_docs)) for s in scalar_sets]
     _note_launch("multi", batch)
-    with _execute_phase("dispatch_multi"):
+    with profiled_phase(PHASE_EXECUTE, stage="dispatch_multi"):
         return _dispatch_lanes(plan, k, fn,
                                lanes + [None] * (bucket - batch), batch, dev)
 
@@ -1264,6 +1253,7 @@ def dispatch_plan_stacked(plans, k: int, arrays_list, valid=None,
                               for t in arrays_list[q] if t is not None],
                      "dispatch_plan_stacked")
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    note_dispatch()
     plans_b = list(plans) + [plans[-1]] * (bucket - batch)
     shared_slots, stacked_slots = stacked_slot_split(plans_b)
     fn = _program(_STACKED_CACHE,
@@ -1278,7 +1268,7 @@ def dispatch_plan_stacked(plans, k: int, arrays_list, valid=None,
             lanes[q] = (arrays, tuple(plans[q].scalars),
                         int(plans[q].num_docs))
     _note_launch("stacked", batch)
-    with _execute_phase("dispatch_stacked"):
+    with profiled_phase(PHASE_EXECUTE, stage="dispatch_stacked"):
         return _dispatch_lanes(base, k, fn, lanes, batch, dev)
 
 
@@ -1313,6 +1303,7 @@ def compute_packed_mask(plan: LoweredPlan, device_arrays: list,
     dev = _on_device(device, device_arrays, "compute_packed_mask")
     padded = plan.num_docs_padded
     SEARCH_KERNEL_LAUNCHES_TOTAL.inc()
+    note_dispatch()
     mask, _ = _node_evaluator(padded, dev)(plan.root, list(device_arrays),
                                            tuple(plan.scalars))
     mask = mask & mask_ops.valid_docs_mask(plan.num_docs, padded, dev)

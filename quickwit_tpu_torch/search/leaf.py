@@ -423,7 +423,7 @@ def execute_prepared_split(
         # truncation artifact — the exact match count is the term's df
         count = plan.count_override
     profile = current_profile()
-    t_merge = time.monotonic()
+    t_merge = time.perf_counter()
     num_hits_returned = min(k, count)
     partial_hits = []
     # text-field sort: internal keys are split-local dictionary ordinals —
@@ -481,7 +481,7 @@ def execute_prepared_split(
     if profile is not None:
         # host-side top-K decode + agg-state extraction for this split
         profile.record_phase(PHASE_TOPK_MERGE,
-                             time.monotonic() - t_merge, start=t_merge,
+                             time.perf_counter() - t_merge, start=t_merge,
                              split_id=split_id, hits=len(partial_hits))
     elapsed = int((time.monotonic() - t0) * 1e6)
     return LeafSearchResponse(

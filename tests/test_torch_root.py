@@ -250,24 +250,27 @@ def assert_close(want, got, path="response"):
 
 
 # Counters that differ by design: the JAX executor counts its program
-# cache (`compile_cache_*`: the port compiles nothing at query time) and
-# `cpu_micros` is a time.
+# cache (`compile_cache_*`: the port compiles nothing at query time),
+# `cpu_micros` is a time and `device_dispatches` is the port's own count
+# of the device programs a query launched.
 UNCOMPARED_COUNTERS = ("compile_cache_hits", "compile_cache_misses",
-                       "cpu_micros")
+                       "cpu_micros", "device_dispatches")
 
 
 def profile_shape(profile):
     """A profile without its times, in an order that does not depend on
-    the fan-out's threads: the phase records (each without `start_ms` and
-    `duration_ms`; the JAX `compile` phase read as `execute`, see
-    `executor._execute_phase`) as a sorted multiset, the counters, the
-    partial mark and the leaves' shapes."""
+    the fan-out's threads: the phase records (each without its times,
+    `start_ms`, `duration_ms` and the port's `cpu_ms`; the JAX `compile`
+    phase read as `execute`: the JAX executor names a dispatch that traced
+    and compiled its program `compile`, and the port compiles nothing at
+    query time) as a sorted multiset, the counters, the partial mark and
+    the leaves' shapes."""
     if profile is None:
         return None
 
     def phase(p):
         rec = {k: v for k, v in p.items()
-               if k not in ("start_ms", "duration_ms")}
+               if k not in ("start_ms", "duration_ms", "cpu_ms")}
         if rec["name"] == "compile":
             rec["name"] = "execute"
         return sorted(rec.items(), key=lambda kv: kv[0])
