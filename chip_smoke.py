@@ -20,7 +20,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
             in {10, 64}, over lanes of unequal length, misaligned views and
             an all-invalid lane, bit for bit against its plain version and
             against one solo launch per lane, and 100 launches back to
-            back with the lane count moving.
+            back with the lane count moving. Then the one-pass aggregation
+            kernel (`bucket_aggregate`) at the otel dashboard's shapes
+            (524,288 docs: 18 terms with a sketch each; 60 one-minute
+            buckets with avg and max over i32 seconds, as a one-split plan
+            lowers them, and over the corpus's u32 millisecond lanes of an
+            i64 micros frame, as a batched plan does; the global sketch; a
+            15-minute and a 1-hour mask), its state bit for bit against
+            the executor's torch path, its plain version, and timed beside
+            its bound and that torch path.
 3. split  : build a hdfs-logs split with the port's own generator (10M docs,
             seed 7 by default, the reference's split size).
 4. slice  : run `leaf_search_single_split` on `cuda` for the flagship request
@@ -43,7 +51,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               `mask_override`, equal to the request without it.
             Each response must equal the port's own `device="cpu"` run on
             the same split, with num_hits > 0 and bucket counts summing to
-            num_hits where there are aggregations.
+            num_hits where there are aggregations. The aggregation kernel
+            launches 0 times on the slice (posting space) and 4 times on
+            the doc-space requests (the flagship's date_histogram and
+            terms on c2_by_timestamp and on its mask_override run).
 5. aggs   : the aggregation requests, with the counters zeroed again: an
             otel-traces split from the port's generator (10M docs, the
             same seed) and a 20,000-doc split written by the port's
@@ -69,7 +80,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
               stats and cardinality of the packed u64.
             The two cuda calls must give the same bytes; the cuda response
             must equal the CPU's (f64 sums to rtol 1e-12, everything else
-            exactly).
+            exactly). The aggregation kernel launches 0 times here: the
+            flagship runs in posting space, the otel split's durations are
+            unpacked i64 (no width bounds their sums), and the rest are
+            range, composite, cardinality, extended_stats, multivalued
+            terms and a u64 past 2^53. Each later phase's launches of it
+            are counted apart, timing and comparison calls included.
 6. timing : for flagship, body_top10, c2 and the three timed aggregation
             requests: warm p50/p90 of the whole leaf call, its phases
             (plan, stage, execute), a profiler window (device busy share,
@@ -776,6 +792,147 @@ def check_score_topk_lanes(torch, st, dev) -> float:
     say("kernel score_topk_lanes back_to_back: 100 launches of 16 and 3 "
         "lanes on one stream, all equal to solo launches")
     return worst
+
+
+# --------------------------------------------------------------------------
+# phase 2, continued: the one-pass aggregation kernel
+
+def bucket_aggs_cases(torch, ex, plan_mod, dev, docs: int):
+    """The otel dashboard's aggregation nodes over columns shaped as its
+    splits store them (`qwbench/corpus/otel_traces.py`): i32 ordinals of 18
+    services under Zipf(1); the span starts over an hour, sorted, both as
+    the i32 seconds a one-split plan lowers the date_histogram to and as
+    the corpus stores them, u32 millisecond lanes of an i64 micros column
+    (FOR scale 1,000), which a batched plan reads with i64 origin and
+    interval; u16 lanes of a u64 duration column in ms (log-normal(9,
+    1.5) us) and its presence.
+    Returns (view, {mask name: (mask, docs selected)}, {shape: node})."""
+    import numpy as np
+    rng = np.random.RandomState(21)
+    zipf = 1.0 / np.arange(1, 19)
+    start_ms = np.sort(rng.randint(0, 3_600_000, docs))
+    base_us = 1_700_000_000 * 1_000_000
+    arrays = [
+        rng.choice(18, docs, p=zipf / zipf.sum()).astype(np.int32),
+        (start_ms // 1000).astype(np.int32),
+        np.ones(docs, dtype=np.uint8),
+        np.minimum(np.exp(rng.normal(9.0, 1.5, docs)) // 1000,
+                   65535).astype(np.uint16),
+        np.ones(docs, dtype=np.uint8),
+        start_ms.astype(np.uint32),
+    ]
+    scalars = [np.asarray(0, np.int32), np.asarray(60, np.int32),
+               np.asarray(1, np.uint64), np.asarray(0, np.uint64),
+               np.asarray(1000, np.int64), np.asarray(base_us, np.int64),
+               np.asarray(base_us, np.int64),
+               np.asarray(60_000_000, np.int64)]
+    view = ex._RebaseView([torch.from_numpy(a).to(dev) for a in arrays],
+                          scalars, {3: (2, 3), 5: (4, 5)})
+    masks = {}
+    for name, share in (("15m", 4), ("1h", 1)):
+        mask = torch.zeros(docs, dtype=torch.bool, device=dev)
+        mask[docs - docs // share:] = True
+        masks[name] = (mask, docs // share)
+    pct = plan_mod.MetricSlots("latency", "percentiles", 3, 4)
+    nodes = {
+        "terms18_sketch": plan_mod.BucketAggExec(
+            "service", "terms", 0, -1, 18, metrics=(pct,)),
+        "date60_avg_max": plan_mod.BucketAggExec(
+            "per_minute", "date_histogram", 1, 2, 60, 0, 1, metrics=(
+                plan_mod.MetricSlots("avg_duration", "avg", 3, 4),
+                plan_mod.MetricSlots("max_duration", "max", 3, 4))),
+        "date60_avg_max_u32ms": plan_mod.BucketAggExec(
+            "per_minute", "date_histogram", 5, 2, 60, 6, 7, metrics=(
+                plan_mod.MetricSlots("avg_duration", "avg", 3, 4),
+                plan_mod.MetricSlots("max_duration", "max", 3, 4))),
+        "global_sketch": plan_mod.MetricAggExec("latency", pct),
+    }
+    return view, masks, nodes
+
+
+def state_leaves(torch, tree, path="state"):
+    """(path, tensor) of every leaf of an aggregation state, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in state_leaves(torch, v, f"{path}.{k}")]
+    return [x for i, v in enumerate(tree)
+            for x in state_leaves(torch, v, f"{path}[{i}]")]
+
+
+def same_state(torch, got, want, label) -> None:
+    """Equal aggregation states, every leaf bit for bit."""
+    got = state_leaves(torch, got, label)
+    want = state_leaves(torch, want, label)
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{label}: the states differ in structure")
+    for (path, g), (_, w) in zip(got, want):
+        if g.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{path}: kernel differs from torch path")
+
+
+def check_bucket_aggs(torch, dev, iters: int, label) -> dict:
+    """The aggregation kernel at the dashboard's shapes: its state against
+    the executor's torch path, its plain version (bit for bit), then per
+    call and by graph replay, beside that torch path and its bound (the
+    mask read once, and for the selected docs their bucket lane, presences
+    and metric lane, and the state written once, at the HBM rate).
+    Timing launches are put back. Returns the kernel row."""
+    from quickwit_tpu_torch.ops.kernels import aggs as ak
+    from quickwit_tpu_torch.search import executor as ex
+    from quickwit_tpu_torch.search import plan as plan_mod
+    docs = 524_288
+    view, masks, nodes = bucket_aggs_cases(torch, ex, plan_mod, dev, docs)
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = []
+    for shape, node in nodes.items():
+        for mask_name, (mask, selected) in masks.items():
+            route = ex._kernel_route(node, view, docs)
+            if route is None:
+                raise AssertionError(f"{shape}: the kernel does not take it")
+            before = ak.bucket_aggregate.launches
+            got = ex._eval_agg_kernel(route, mask)
+            calls = ak.bucket_aggregate.launches - before
+            want = ex._eval_agg_torch(node, view, view.scalars, mask)
+            same_state(torch, got, want, f"{shape}@{mask_name}")
+            same_state(torch, ex._eval_agg_kernel(route, mask), got,
+                       f"{shape}@{mask_name} repeated")
+            kernel_ms = cuda_ms(torch, lambda: ex._eval_agg_kernel(
+                route, mask), iters, flush)
+            replay_ms = graph_ms(torch, lambda: ex._eval_agg_kernel(
+                route, mask), iters, flush)
+            ak.bucket_aggregate.launches = before   # not a path's launches
+            plain_ms = cuda_ms(torch, lambda: ex._eval_agg_torch(
+                node, view, view.scalars, mask), iters, flush)
+            # per selected doc: the metric's u16 lane and presence byte,
+            # and the bucket's i32 or u32 lane (and a date's presence byte)
+            per_doc = 3
+            if isinstance(node, plan_mod.BucketAggExec):
+                per_doc += 5 if node.kind == "date_histogram" else 4
+            state_bytes = sum(t.numel() * t.element_size()
+                              for _, t in state_leaves(torch, got))
+            nbytes = docs + selected * per_doc + state_bytes
+            bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+            say(f"[{label}] kernel bucket_aggs @{shape}/{mask_name}: "
+                f"P={docs} selected={selected} launches_per_call={calls} "
+                f"ms={kernel_ms:.5f} graph_replay_ms={replay_ms:.5f} "
+                f"plain_ms={plain_ms:.5f} (the torch path) "
+                f"bound_ms={bound_ms:.6f} (bytes={nbytes}) "
+                f"equal_to_torch_path=True")
+            rows.append({"at": f"{shape}/{mask_name}", "P": docs,
+                         "selected": selected, "launches_per_call": calls,
+                         "ms": kernel_ms, "graph_replay_ms": replay_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes"})
+    del flush_buf
+    return {"rows": rows}
 
 
 # --------------------------------------------------------------------------
@@ -6270,6 +6427,7 @@ def main(argv=None) -> int:
     # 2. kernels vs plain -------------------------------------------------
     max_abs_err = check_score_topk(torch, st, dev)
     lanes_err = check_score_topk_lanes(torch, st, dev)
+    bucket_aggs = check_bucket_aggs(torch, dev, args.iters, label)
 
     # 3. split ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -6284,19 +6442,32 @@ def main(argv=None) -> int:
     reader = SplitReader(storage, "hdfs.split")
     requests = hdfs_requests(SearchRequest, Term, body_term)
 
+    # the aggregation kernel's launches, phase by phase from here on (the
+    # CPU runs of each phase launch nothing: the CPU takes the torch path)
+    from quickwit_tpu_torch.ops.kernels import aggs as ak
+    bucket_launches: dict = {}
+
+    def bucket_phase(name: str) -> int:
+        """The aggregation kernel's launches since the last phase ended."""
+        bucket_launches[name] = ak.bucket_aggregate.launches
+        ak.bucket_aggregate.launches = 0
+        return bucket_launches[name]
+
     # 4. slice on the card, against the port's CPU run ----------------------
     st.score_topk.launches = 0
+    ak.bucket_aggregate.launches = 0
     responses = {name: leaf_search_single_split(req, HDFS_MAPPER, reader,
                                                 "split-0", device=dev)
                  for name, req in requests.items()}
-    launches = {"score_topk": st.score_topk.launches}
+    launches = {"score_topk": st.score_topk.launches,
+                "bucket_aggs": bucket_phase("slice")}
     say(f"slice launches: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} never launched on the path")
     if launches["score_topk"] != len(requests):   # one launch per query
         raise AssertionError(f"score_topk launched {launches['score_topk']} "
                              f"times for {len(requests)} queries")
+    if launches["bucket_aggs"] != 0:   # both plans run in posting space
+        raise AssertionError("bucket_aggregate launched on a posting-space "
+                             "plan")
     for name, req in requests.items():
         gpu = responses[name]
         cpu = leaf_search_single_split(req, HDFS_MAPPER, reader, "split-0",
@@ -6326,14 +6497,22 @@ def main(argv=None) -> int:
     doc_reqs = doc_space_requests(SearchRequest, SortField, Bool, Range,
                                   RangeBound, Term, body_term)
     st.score_topk.launches = 0
+    ak.bucket_aggregate.launches = 0
     check_doc_space(leaf_mod, ex, HDFS_MAPPER, doc_reqs,
                     requests["body_top10"], responses["body_top10"],
                     requests["flagship"].aggs, reader, dev)
-    doc_launches = {"score_topk": st.score_topk.launches}
+    doc_launches = {"score_topk": st.score_topk.launches,
+                    "bucket_aggs": bucket_phase("doc_space")}
     say(f"doc-space launches: {json.dumps(doc_launches)}")
     if doc_launches["score_topk"] != 0:
         raise AssertionError("score_topk launched on a doc-space or "
                              "threshold request")
+    # the flagship's date_histogram and terms, one launch each, on
+    # c2_by_timestamp and on its mask_override run
+    if doc_launches["bucket_aggs"] != 4:
+        raise AssertionError(f"bucket_aggregate launched "
+                             f"{doc_launches['bucket_aggs']} times on the "
+                             "doc-space requests, not 4")
 
     # 5. aggregations, with the counters zeroed again ----------------------
     t0 = time.perf_counter()
@@ -6356,13 +6535,21 @@ def main(argv=None) -> int:
                             RangeBound, body_term)
     torch.cuda.reset_peak_memory_stats(dev)
     st.score_topk.launches = 0
+    ak.bucket_aggregate.launches = 0
     check_aggregations(leaf_mod, st, collector_mod, agg_reqs, splits, dev)
-    agg_launches = {"score_topk": st.score_topk.launches}
+    agg_launches = {"score_topk": st.score_topk.launches,
+                    "bucket_aggs": bucket_phase("aggs")}
     say(f"aggs launches: {json.dumps(agg_launches)} peak_device_mb="
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f}")
     if agg_launches["score_topk"] != 2:   # flagship_bucket_metrics, twice
         raise AssertionError("score_topk did not launch once per "
                              "flagship_bucket_metrics call")
+    # posting space, the otel split's unpacked i64 durations, and shapes
+    # the kernel does not take (module docstring, phase 5)
+    if agg_launches["bucket_aggs"] != 0:
+        raise AssertionError(f"bucket_aggregate launched "
+                             f"{agg_launches['bucket_aggs']} times on "
+                             "requests the routing sends to torch")
 
     # 6. timing -----------------------------------------------------------
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -6386,6 +6573,10 @@ def main(argv=None) -> int:
         if row is not None:
             rows.append(row)
             max_abs_err = max(max_abs_err, err)
+
+    if bucket_phase("timing") != 0:   # phase 5's plans and no-agg ones
+        raise AssertionError("bucket_aggregate launched in the timing of "
+                             "requests the routing sends to torch")
 
     # 7. phrase over a split file, with the counters zeroed again ----------
     # the split goes to a temporary directory outside the checkout and is
@@ -6415,8 +6606,12 @@ def main(argv=None) -> int:
     phrase_out = check_phrase(leaf_mod, st, ex, pruning, SO_MAPPER,
                               phrase_reqs, open_so_reader,
                               so_counting.counters, dev)
-    phrase_launches = {"score_topk": st.score_topk.launches}
+    phrase_launches = {"score_topk": st.score_topk.launches,
+                       "bucket_aggs": bucket_phase("phrase")}
     say(f"phrase launches: {json.dumps(phrase_launches)}")
+    if phrase_launches["bucket_aggs"] != 0:   # no aggregations
+        raise AssertionError("bucket_aggregate launched on a phrase phase "
+                             "without aggregations")
     if phrase_launches["score_topk"] != 3:   # c4, slop 2 on two readers
         raise AssertionError("score_topk did not launch once per c4 call")
 
@@ -6444,7 +6639,8 @@ def main(argv=None) -> int:
                               StorageResolver, HDFS_MAPPER),
                   storage, args.docs, service_reqs, dev, args.iters, label,
                   here, leaf_times)
-    service_launches = {"score_topk": st.score_topk.launches}
+    service_launches = {"score_topk": st.score_topk.launches,
+                        "bucket_aggs": bucket_phase("service")}
     say(f"service launches: {json.dumps(service_launches)} phase_s="
         f"{time.perf_counter() - t0:.3f}")
     if service_launches["score_topk"] < 1:
@@ -6465,7 +6661,8 @@ def main(argv=None) -> int:
     rows.append(chunked["row"])
     max_abs_err = max(max_abs_err, chunked["err"])
     say(f"chunked launches: {json.dumps({'score_topk': chunked['launches']})}"
-        f" phase_s={time.perf_counter() - t0:.3f}")
+        f" phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('chunked')}")
 
     # 10. query stacking, with the counters zeroed again -------------------
     t0 = time.perf_counter()
@@ -6490,7 +6687,8 @@ def main(argv=None) -> int:
         args.iters, label, here, flush)
     del flush_buf
     so_dir.cleanup()
-    say(f"stacking phase_s={time.perf_counter() - t0:.3f}")
+    say(f"stacking phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('stacking')}")
 
     # 11. the multi-split fan-out, with the counters zeroed again ----------
     t0 = time.perf_counter()
@@ -6513,7 +6711,8 @@ def main(argv=None) -> int:
     del flush_buf
     fanout_launches, fanout_row, fanout_err = (
         fanned["launches"], fanned["row"], fanned["err"])
-    say(f"fanout phase_s={time.perf_counter() - t0:.3f}")
+    say(f"fanout phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('fanout')}")
 
     # 12. root search over phase 11's splits, with the counters zeroed
     # again --------------------------------------------------------------
@@ -6545,7 +6744,8 @@ def main(argv=None) -> int:
             body_term=body_term),
         dev, args.iters, label, here, {**requests, **doc_reqs}, fanned)
     del fanned
-    say(f"root phase_s={time.perf_counter() - t0:.3f}")
+    say(f"root phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('root')}")
 
     # 13. the write path, with the counters zeroed again ------------------
     t0 = time.perf_counter()
@@ -6577,7 +6777,8 @@ def main(argv=None) -> int:
             SortField=SortField, parse_query_string=parse_query_string,
             es_query_to_ast=es_query_to_ast),
         dev, label, WRITE_DOCS, args.seed, requests["flagship"].aggs)
-    say(f"write phase_s={time.perf_counter() - t0:.3f}")
+    say(f"write phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('write')}")
 
     # 14. external sources and the control plane, with the counters zeroed
     # again ---------------------------------------------------------------
@@ -6585,7 +6786,8 @@ def main(argv=None) -> int:
     sourced = check_sources(torch, st, sources_modules(), dev, label,
                             args.seed, SOURCES_SIZES,
                             requests["flagship"].aggs)
-    say(f"sources phase_s={time.perf_counter() - t0:.3f}")
+    say(f"sources phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('sources')}")
 
     # 15. the node and its REST front door, with the counters zeroed again
     t0 = time.perf_counter()
@@ -6599,21 +6801,24 @@ def main(argv=None) -> int:
             body_term=body_term),
         dev, label, here, args.seed, args.iters, rooted,
         requests["flagship"].aggs)
-    say(f"serve phase_s={time.perf_counter() - t0:.3f}")
+    say(f"serve phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('serve')}")
 
     # 16. the gRPC plane, the SQL metastore and the offload pool, with the
     # counters zeroed again ------------------------------------------------
     t0 = time.perf_counter()
     gridded = check_grpc_offload(torch, st, grpc_offload_modules(), dev,
                                  label, args.iters, rooted)
-    say(f"grpc phase_s={time.perf_counter() - t0:.3f}")
+    say(f"grpc phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('grpc')}")
 
     # 17. the fan-out's device mesh and the SQL route, with the counters
     # zeroed again ---------------------------------------------------------
     t0 = time.perf_counter()
     meshed = check_mesh(torch, st, mesh_modules(), dev, label, args.iters,
                         rooted)
-    say(f"mesh phase_s={time.perf_counter() - t0:.3f}")
+    say(f"mesh phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('mesh')}")
 
     # 18. the native write path against the Python one, with the counters
     # zeroed again ---------------------------------------------------------
@@ -6629,14 +6834,16 @@ def main(argv=None) -> int:
             body_term=body_term, parse_query_string=parse_query_string,
             es_query_to_ast=es_query_to_ast),
         dev, label, args.seed, requests["flagship"].aggs)
-    say(f"native phase_s={time.perf_counter() - t0:.3f}")
+    say(f"native phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('native')}")
 
     # 19. the deterministic simulation harness on the card, with the
     # counters zeroed again ------------------------------------------------
     t0 = time.perf_counter()
     from quickwit_tpu_torch import dst
     simulated = check_dst(torch, st, dst, dev, label)
-    say(f"dst phase_s={time.perf_counter() - t0:.3f}")
+    say(f"dst phase_s={time.perf_counter() - t0:.3f} "
+        f"bucket_aggs_launches={bucket_phase('dst')}")
 
     main_row = next(r for r in rows if r["at"] == "flagship")
     kernels = [{
@@ -6711,6 +6918,24 @@ def main(argv=None) -> int:
             "bound_ms", "bound_by", "library_ms")},
         "shapes": [stacking["row"], fanout_row],
     }]
+    later = [name for name in bucket_launches if name not in (
+        "slice", "doc_space", "aggs", "timing", "phrase")]
+    if sum(bucket_launches[name] for name in later) < 1:
+        raise AssertionError("bucket_aggregate never launched from the "
+                             "service phase on")
+    kernels.append({
+        "name": "bucket_aggs", "route": "cuda",
+        "source": "quickwit_tpu_torch/csrc/aggs.cu",
+        "replaces": None,   # XLA fuses these reductions on the TPU
+        # by phase: each doc-space aggregation node of a terms or
+        # date_histogram bucket agg, or a top-level metric, over integer
+        # columns (one launch per metric column); from the service phase
+        # on, the phases' own timing and comparison calls are included
+        "launches": bucket_launches,
+        **{key: bucket_aggs["rows"][0][key] for key in (
+            "ms", "graph_replay_ms", "plain_ms", "bound_ms", "bound_by")},
+        "shapes": bucket_aggs["rows"],
+    })
     say(f"smoke total_s={time.perf_counter() - smoke_t0:.3f}")
     say(label)
     say(json.dumps({"kernels": kernels}))

@@ -74,6 +74,10 @@ PHASE_FETCH_DOCS = "fetch_docs"
 
 # the counter of device programs launched for the query
 DEVICE_DISPATCHES = "device_dispatches"
+# the aggregation nodes the query's split programs evaluated, and those of
+# them that the one-pass aggregation kernel computed (search/executor.py)
+AGG_EVALS = "agg_evals"
+AGG_KERNEL_EVALS = "agg_kernel_evals"
 
 
 class _NullPhase:

@@ -38,7 +38,9 @@ depth; range buckets (one mask per range, since ranges overlap);
 composite buckets (a stable lexicographic sort over the doc space, run
 starts, and segment reductions per run); top-level stats, percentiles and
 cardinality. Every reduction is in `ops/aggs.py`; none uses f64 atomics,
-so a request gives the same bits on every run.
+so a request gives the same bits on every run. On CUDA tensors a node
+whose state the one-pass kernel (`ops/kernels/aggs.py`) computes exactly
+takes that kernel instead (`_kernel_route`), with the same bits.
 
 Scalars stay on the host (numpy) and enter torch ops as host numbers,
 except divisors, which become 0-dim device tensors (`ops.bm25.f32_scalar`):
@@ -59,8 +61,10 @@ from ..index.format import ZONEMAP_BLOCK
 from ..observability import flight
 from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
 from ..observability.profile import (
-    PHASE_EXECUTE, note_dispatch, profiled_phase)
+    AGG_EVALS, AGG_KERNEL_EVALS, PHASE_EXECUTE, note_dispatch, profile_add,
+    profiled_phase)
 from ..ops import aggs as agg_ops
+from ..ops.kernels import aggs as agg_kernel
 from ..ops import masks as mask_ops
 from ..ops import topk as topk_ops
 from ..ops.bm25 import dequantize_block_bounds, score_postings
@@ -480,30 +484,203 @@ def _eval_composite_agg(a: CompositeAggExec, arrays, scalars, mask):
     return out
 
 
-def _eval_aggs(aggs, gathered, scalars, valid):
-    agg_out = []
-    for a in aggs:
-        if isinstance(a, CompositeAggExec):
-            agg_out.append(_eval_composite_agg(a, gathered, scalars, valid))
-        elif isinstance(a, BucketAggExec):
-            agg_out.append(_eval_bucket_agg(a, gathered, scalars, valid))
-        elif isinstance(a, MetricAggExec):
-            met = a.metric
-            if met.kind == "cardinality":
-                hashes, present = _cardinality_hashes(met, gathered)
-                agg_out.append(
-                    {"hll": agg_ops.hll_registers(hashes, valid & present)})
-                continue
-            mv = gathered[met.values_slot]
-            mp = gathered[met.present_slot]
-            if met.kind == "percentiles":
-                agg_out.append(
-                    {"sketch": agg_ops.percentile_sketch(mv, mp, valid)})
-            else:
-                agg_out.append(
-                    {"stats": agg_ops.stats_state(mv, mp, valid)})
+def _eval_agg_torch(a, gathered, scalars, valid):
+    """One aggregation node's state by the torch reductions of
+    `ops/aggs.py`."""
+    if isinstance(a, CompositeAggExec):
+        return _eval_composite_agg(a, gathered, scalars, valid)
+    if isinstance(a, BucketAggExec):
+        return _eval_bucket_agg(a, gathered, scalars, valid)
+    if isinstance(a, MetricAggExec):
+        met = a.metric
+        if met.kind == "cardinality":
+            hashes, present = _cardinality_hashes(met, gathered)
+            return {"hll": agg_ops.hll_registers(hashes, valid & present)}
+        mv = gathered[met.values_slot]
+        mp = gathered[met.present_slot]
+        if met.kind == "percentiles":
+            return {"sketch": agg_ops.percentile_sketch(mv, mp, valid)}
+        return {"stats": agg_ops.stats_state(mv, mp, valid)}
+    raise TypeError(f"unknown agg exec {type(a).__name__}")
+
+
+# --- the one-pass aggregation kernel ---------------------------------------
+#
+# On CUDA tensors a doc-space node whose state `ops/kernels/aggs.py`
+# computes exactly takes it: one launch over the columns as stored, where
+# the torch path runs ~100 eager ops. What decides is what the node and its
+# columns show, never a setting: a terms (i32 ordinals) or date_histogram
+# bucket agg without children, or a top-level metric, whose metrics are all
+# of the kinds below over integer columns with max|value| * docs < 2^53
+# (read from the lanes' width and the host-side FOR scalars). Everything
+# else takes the torch path: posting space (`_GatherView`), composite,
+# range, histogram, terms_mv, nested buckets, cardinality, extended_stats,
+# f64 columns, and every node on the CPU. `_kernel_route` reads the node and
+# its columns alone, so the CPU tests see how the card routes.
+
+_KERNEL_NEEDS = {
+    "value_count": agg_kernel.COUNT,
+    "sum": agg_kernel.SUM,
+    "avg": agg_kernel.SUM | agg_kernel.COUNT,
+    "min": agg_kernel.MIN,
+    "max": agg_kernel.MAX,
+    "stats": agg_kernel.STATS,
+    "percentiles": agg_kernel.SKETCH,
+}
+
+
+def _kernel_ready(t: torch.Tensor, docs: int) -> bool:
+    return t.dim() == 1 and t.shape[0] == docs and t.is_contiguous()
+
+
+def _kernel_metric_column(view, met, squares: bool, docs: int):
+    if met.present_slot < 0:
+        return None
+    lanes = view.arrays[met.values_slot]
+    present = view.arrays[met.present_slot]
+    if not (_kernel_ready(lanes, docs) and _kernel_ready(present, docs)):
+        return None
+    rb = view.rebase.get(met.values_slot)
+    frame = None if rb is None else (view.scalars[rb[0]],
+                                     view.scalars[rb[1]])
+    return agg_kernel.exact_column(lanes, present, frame, squares)
+
+
+def _kernel_bucket(a: BucketAggExec, view, docs: int):
+    """The bucket arguments of `agg_kernel.bucket_aggregate` for a terms or
+    date_histogram node, or None where the kernel would not index its
+    docs as `_bucket_idx` does."""
+    lanes = view.arrays[a.values_slot]
+    rb = view.rebase.get(a.values_slot)
+    if not _kernel_ready(lanes, docs):
+        return None
+    if a.kind == "terms":
+        if lanes.dtype != torch.int32 or rb is not None:
+            return None
+        return {"kind": "terms", "bucket": agg_kernel.Column(lanes)}
+    present = view.arrays[a.present_slot] if a.present_slot >= 0 else None
+    if present is None or not _kernel_ready(present, docs) \
+            or present.dtype not in agg_kernel.PRESENT_DTYPES:
+        return None
+    origin = int(np.asarray(view.scalars[a.origin_slot]))
+    interval = int(np.asarray(view.scalars[a.interval_slot]))
+    rebase = None
+    if rb is not None:
+        # unsigned lanes of an i64 frame rebase in i64, as the torch path
+        # does (a u64 frame rebases to u64 lanes, subtracted otherwise)
+        scale = np.asarray(view.scalars[rb[0]])
+        frame = agg_kernel.frame_of((scale, view.scalars[rb[1]]))
+        if (frame is None or scale.dtype != np.int64 or lanes.dtype
+                not in (torch.uint8, torch.uint16, torch.uint32)):
+            return None
+        rebase = frame[0]
+    elif lanes.dtype == torch.int32:
+        if not (-2**31 <= origin < 2**31 and interval < 2**31):
+            return None
+    elif lanes.dtype != torch.int64:
+        return None
+    if interval <= 0:
+        return None
+    return {"kind": "date_histogram",
+            "bucket": agg_kernel.Column(lanes, present, rebase),
+            "origin": origin, "interval": interval}
+
+
+def _kernel_route(a, view, docs: int):
+    """(bucket arguments, buckets, [(metric column, its metrics, needs)],
+    the node's metrics) when the kernel computes node `a`, one launch per
+    metric column; None where the node takes the torch path."""
+    if not isinstance(view, _RebaseView):
+        return None
+    if isinstance(a, MetricAggExec):
+        met = a.metric
+        if met.kind not in _KERNEL_NEEDS:
+            return None
+        needs = (agg_kernel.SKETCH if met.kind == "percentiles"
+                 else agg_kernel.STATS)    # `stats_state` for every other
+        col = _kernel_metric_column(view, met,
+                                    bool(needs & agg_kernel.SUM_SQ), docs)
+        if col is None:
+            return None
+        return {"kind": "none"}, 1, [(col, (met,), needs)], (met,)
+    if not (isinstance(a, BucketAggExec)
+            and a.kind in ("terms", "date_histogram") and not a.subs
+            and 1 <= a.num_buckets <= agg_kernel.MAX_BUCKETS):
+        return None
+    bucket = _kernel_bucket(a, view, docs)
+    if bucket is None:
+        return None
+    groups: dict[tuple[int, int], list] = {}
+    for met in a.metrics:
+        if met.kind not in _KERNEL_NEEDS:
+            return None
+        groups.setdefault((met.values_slot, met.present_slot),
+                          []).append(met)
+    launches = []
+    for mets in groups.values():
+        needs = 0
+        for met in mets:
+            needs |= _KERNEL_NEEDS[met.kind]
+        col = _kernel_metric_column(view, mets[0],
+                                    bool(needs & agg_kernel.SUM_SQ), docs)
+        if col is None:
+            return None
+        launches.append((col, tuple(mets), needs))
+    return bucket, a.num_buckets, launches, a.metrics
+
+
+def _eval_agg_kernel(route, mask):
+    """The node's state, as `_eval_agg_torch` returns it, from the kernel:
+    one launch per metric column (the first also counts the buckets)."""
+    bucket, nb, launches, metric_order = route
+    if bucket["kind"] == "none":
+        ((col, _, needs),) = launches
+        out = agg_kernel.bucket_aggregate(
+            mask, 1, needs, metric=col, stats=needs == agg_kernel.STATS)
+        if needs == agg_kernel.SKETCH:
+            return {"sketch": out["sketch"].reshape(-1)}
+        return out
+    counts, per_metric = None, {}
+    for col, mets, needs in launches or [(None, (), 0)]:
+        if counts is None:
+            needs |= agg_kernel.COUNTS
+        out = agg_kernel.bucket_aggregate(mask, nb, needs, metric=col,
+                                          **bucket)
+        if counts is None:
+            counts = out["counts"]
+        for met in mets:
+            per_metric[id(met)] = out
+    metrics: dict[str, Any] = {}
+    for met in metric_order:     # `_bucket_metrics`' order
+        out = per_metric[id(met)]
+        if met.kind == "percentiles":
+            metrics[met.name] = {"sketch": out["sketch"]}
         else:
-            raise TypeError(f"unknown agg exec {type(a).__name__}")
+            metrics[met.name] = _metric_state(
+                met.kind, lambda: out["sum"], lambda: out["count"],
+                lambda: out["min"], lambda: out["max"],
+                lambda: out["sum_sq"])
+    return {"counts": counts, "metrics": metrics}
+
+
+def _eval_aggs(aggs, gathered, scalars, valid):
+    """Every aggregation node's state over the docs in `valid`: on CUDA by
+    the one-pass kernel where it computes the node exactly
+    (`_kernel_route`), else by the torch reductions. Counts the nodes, and
+    those the kernel computed, on the ambient query profile."""
+    agg_out = []
+    on_kernel = 0
+    for a in aggs:
+        route = (_kernel_route(a, gathered, valid.shape[0])
+                 if valid.is_cuda else None)
+        if route is None:
+            agg_out.append(_eval_agg_torch(a, gathered, scalars, valid))
+        else:
+            agg_out.append(_eval_agg_kernel(route, valid))
+            on_kernel += 1
+    if aggs:
+        profile_add(AGG_EVALS, len(aggs))
+        profile_add(AGG_KERNEL_EVALS, on_kernel)
     return agg_out
 
 

@@ -251,10 +251,13 @@ def assert_close(want, got, path="response"):
 
 # Counters that differ by design: the JAX executor counts its program
 # cache (`compile_cache_*`: the port compiles nothing at query time),
-# `cpu_micros` is a time and `device_dispatches` is the port's own count
-# of the device programs a query launched.
+# `cpu_micros` is a time, `device_dispatches` is the port's own count
+# of the device programs a query launched, and `agg_evals` and
+# `agg_kernel_evals` its own count of the aggregation nodes its split
+# programs evaluated and of those its aggregation kernel computed.
 UNCOMPARED_COUNTERS = ("compile_cache_hits", "compile_cache_misses",
-                       "cpu_micros", "device_dispatches")
+                       "cpu_micros", "device_dispatches", "agg_evals",
+                       "agg_kernel_evals")
 
 
 def profile_shape(profile):
