@@ -1,7 +1,8 @@
 """Finding a cell's parts by name: its entry in `BENCHMARK.json`, its
 deployment (`configs/<config>.json`), its traffic (`traffic/<mix>.json`),
 its corpus kind (`corpus/<kind>.py`) and its per-layer readers
-(`metrics/<metric>.py`, else `metrics/<metric up to its first dot>.py`)."""
+(`metrics/<metric>.py`, else `metrics/<metric up to its first dot>.py`,
+so that `dispatch_cpu_ms.<x>` reuses `dispatch_cpu_ms`'s reader)."""
 
 from __future__ import annotations
 

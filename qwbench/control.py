@@ -1,10 +1,10 @@
 """The control of the comparison that decides `correct`: the plain
 reference put in the program's place, computed one precision below the
 one the deployment states (`check.control_dtype`: float32 aggregates
-where float64 is stated), answering a
-run's sample of requests over the same raw documents. Its answers have to
-come out not correct; the readings it prints set the upper end of each
-limit. Not run by the benchmark's runs.
+where float64 is stated; scores in that dtype too), answering a run's
+sample of requests, hits and their documents included, over the same raw
+documents. Its answers have to come out not correct; the readings it
+prints set the upper end of each limit. Not run by the benchmark's runs.
 
     python3 -m qwbench.control --workload <cell> --seeds 1,2,3 --seconds 30
 """
@@ -36,16 +36,16 @@ def readings(work: dict, seed: int, seconds: float, device: str,
     footers = {sid: None for sid, _, _ in cell.splits}
     bytes_of = cell.needed_bytes(footers, widths=widths)
     specs = cell.schedule(seconds, "window")[0]
-    weights = [max(bytes_of(s["request"]).values(), default=0)
-               for s in specs]
+    weights = [sum(bytes_of(s["request"]).values()) for s in specs]
     low = getattr(torch, cell.config["check"]["control_dtype"])
-    splits = [reference.Split(cell.config, raw, sid, device)
-              for raw, (sid, _, _) in zip(cell.raws, cell.splits)]
+    splits = cell.reference_splits(device)
     items = []
     for i in harness.choose_sample(cell, weights):
         request = specs[i]["request"]
         answer = reference.answer(splits, request, dtype=low)
-        items.append((request, answer | {"hits": [], "errors": []}))
+        items.append((request, {"num_hits": answer["num_hits"],
+                                "hits": answer.get("hits", []),
+                                "aggs": answer["aggs"], "errors": []}))
     tally = harness.judge(cell, items)
     ok, shown = check.verdict(tally, cell.config["check"]["limits"])
     return {"seed": seed, "correct": ok,

@@ -1,6 +1,9 @@
 """Split building shared by the corpus kinds: the port's split layout (the
 one `quickwit_tpu_torch.index.writer.SplitWriter` writes) built from whole
-columns at once, on the device where the work is large.
+columns at once, on the device where the work is large: numeric and
+ordinal fast columns, the postings of raw text, numeric and
+default-tokenized text fields (from token ids in CSR form), and the doc
+store.
 
 The layout is the program's, so the arrays go through its
 `SplitFileBuilder` and its numeric column packing. The impact ordering of
@@ -13,7 +16,10 @@ equal, array by array, against `SplitWriter` itself.
 from __future__ import annotations
 
 import hashlib
+import json
 import math
+import re
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -22,7 +28,7 @@ from quickwit_tpu_torch.index.format import (
     DOC_PAD, POSTING_PAD, ZONEMAP_BLOCK, SplitFileBuilder, SplitFooter, pad_to,
 )
 from quickwit_tpu_torch.index.writer import (
-    ANALYZER_VERSION, _column_zonemaps, _pack_numeric,
+    ANALYZER_VERSION, SplitWriter, _column_zonemaps, _pack_numeric,
 )
 from quickwit_tpu_torch.models.doc_mapper import DocMapper, FieldType
 
@@ -211,11 +217,11 @@ def inverted_field(builder: SplitFileBuilder, name: str, term_blob: bytes,
                        "ordered": True}}
 
 
-def categorical_field(builder: SplitFileBuilder, fm, vocab: list[str],
-                      codes: torch.Tensor, num_docs_padded: int) -> dict:
-    """A raw-tokenized fast text field with one value per doc: its
-    postings (one token per doc) and its ordinal column. `vocab` sorted;
-    codes index it."""
+def _one_term_postings(builder: SplitFileBuilder, fm, vocab: list[str],
+                       codes: torch.Tensor, num_docs_padded: int):
+    """Postings of a field with one term per doc: `vocab` sorted, codes
+    index it. Returns (field meta, the terms some doc has, each doc's
+    ordinal among them)."""
     dev = codes.device
     n = codes.shape[0]
     codes = codes.long()
@@ -232,10 +238,79 @@ def categorical_field(builder: SplitFileBuilder, fm, vocab: list[str],
     meta = inverted_field(builder, fm.name, b"".join(encoded), offsets,
                           ords[order], order, torch.ones_like(order),
                           norms, n, n, num_docs_padded, fm)
+    return meta, used, ords
+
+
+def categorical_field(builder: SplitFileBuilder, fm, vocab: list[str],
+                      codes: torch.Tensor, num_docs_padded: int) -> dict:
+    """A raw-tokenized fast text field with one value per doc: its
+    postings (one token per doc) and its ordinal column. `vocab` sorted;
+    codes index it."""
+    meta, used, ords = _one_term_postings(builder, fm, vocab, codes,
+                                          num_docs_padded)
     meta.update(ordinal_column(builder, fm.name, used,
                                ords.to(torch.int32).cpu().numpy(),
                                num_docs_padded))
     return meta
+
+
+def numeric_terms(builder: SplitFileBuilder, fm, values: torch.Tensor,
+                  num_docs_padded: int) -> dict:
+    """The postings of an indexed integer field with one value per doc:
+    each value indexed under its decimal string, the terms in byte order,
+    as `SplitWriter` indexes a numeric field. The field's fast column is
+    `numeric_column`'s; update this meta with its meta."""
+    distinct, codes = torch.unique(values, return_inverse=True)
+    words = [str(v) for v in distinct.tolist()]
+    ordered, position = _byte_order(words)
+    meta, _, _ = _one_term_postings(builder, fm, ordered,
+                                    position.to(codes.device)[codes],
+                                    num_docs_padded)
+    return meta
+
+
+_WORD = re.compile(r"[0-9a-z]+")
+
+
+def _byte_order(words: list[str]) -> tuple[list[str], torch.Tensor]:
+    """The words in byte order, the order of a split's term dictionary,
+    and each word's position in it."""
+    rank = sorted(range(len(words)), key=lambda i: words[i])
+    position = torch.empty(len(words), dtype=torch.long)
+    position[rank] = torch.arange(len(words))
+    return [words[i] for i in rank], position
+
+
+def text_field(builder: SplitFileBuilder, fm, words: list[str],
+               offsets: torch.Tensor, ids: torch.Tensor,
+               num_docs_padded: int) -> dict:
+    """A default-tokenized text field from each doc's token ids in CSR
+    form (doc i's tokens are `ids[offsets[i]:offsets[i + 1]]`, indices
+    into `words`), with exact field lengths (tokens per doc), as
+    `SplitWriter` indexes the text `" ".join(words[t] for t in tokens)`.
+    Every word has to be its own one token: lowercase ASCII letters and
+    digits."""
+    bad = [w for w in words if not _WORD.fullmatch(w)]
+    if bad:
+        raise ValueError(f"words that do not tokenize to themselves: "
+                         f"{bad[:5]}")
+    dev = ids.device
+    n = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    doc = torch.repeat_interleave(torch.arange(n, device=dev), lengths)
+    ordered, position = _byte_order(words)
+    pairs, tf = torch.unique(position.to(dev)[ids.long()] * n + doc,
+                             return_counts=True)
+    term_sorted = torch.div(pairs, n, rounding_mode="floor")
+    used = torch.unique(term_sorted)
+    term = torch.searchsorted(used, term_sorted)
+    encoded = [ordered[i].encode() for i in used.tolist()]
+    term_offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum([len(w) for w in encoded], out=term_offsets[1:])
+    norms = padded(lengths.to(torch.int32), num_docs_padded)
+    return inverted_field(builder, fm.name, b"".join(encoded), term_offsets,
+                          term, pairs - term_sorted * n, tf, norms,
+                          int(offsets[-1]), n, num_docs_padded, fm)
 
 
 # --- doc store --------------------------------------------------------------
@@ -244,6 +319,18 @@ def empty_doc_store(builder: SplitFileBuilder) -> None:
     builder.add_array("store.data", np.zeros(0, dtype=np.uint8))
     builder.add_array("store.block_offsets", np.array([0], dtype=np.int64))
     builder.add_array("store.block_first_doc", np.array([0], dtype=np.int32))
+
+
+def doc_store(builder: SplitFileBuilder, docs) -> int:
+    """The doc store of `docs` (JSON objects in doc order): each
+    serialised as `SplitWriter.add_document` does, then written by the
+    writer's own `_write_docstore`. Returns the documents' uncompressed
+    bytes."""
+    sources = [json.dumps(doc, separators=(",", ":")).encode()
+               for doc in docs]
+    SplitWriter._write_docstore(
+        SimpleNamespace(_sources=sources, num_docs=len(sources)), builder)
+    return sum(len(source) for source in sources)
 
 
 def finish(builder: SplitFileBuilder, mapper: DocMapper, fields: dict,

@@ -90,6 +90,7 @@ class Cell:
         self.work, self.seed, self.device = work, seed, device
         self.config = config or cells.load_config(work["config"])
         self.mix = mix or cells.load_traffic(work["traffic"])
+        self._reference: dict = {}
 
     def build_corpus(self):
         """Draw and build every split; keep the raw docs on the host."""
@@ -113,20 +114,46 @@ class Cell:
         return (raw[self.config["raw_columns"][ts_field]].numpy()
                 * self.config["raw_time_unit_us"])
 
+    def reference_splits(self, device) -> list:
+        """The plain reference's view of every split's raw documents, each
+        with the corpus's `document(config, raw, doc_id)` where it has
+        one; made once a device, so that its term dictionaries serve the
+        bytes counted and the judge alike."""
+        if device not in self._reference:
+            document = getattr(cells.corpus_module(self.config), "document",
+                               None)
+            self._reference[device] = [reference.Split(
+                self.config, raw, split_id, device,
+                None if document is None else
+                (lambda doc_id, raw=raw: document(self.config, raw, doc_id)))
+                for raw, (split_id, _, _) in zip(self.raws, self.splits)]
+        return self._reference[device]
+
     # --- what each request needs of the device ---------------------------
     def needed_bytes(self, footers: dict, widths: dict | None = None):
-        """`request -> {"aggs"?: bytes}`, with the columns' widths from the
-        splits' footers (or `widths`, for all)."""
+        """`request -> {"aggs"?: bytes, "search"?: bytes}`, with the
+        columns' widths from the splits' footers (or `widths`, for all),
+        counted on the cell's device: `aggs` where the request aggregates,
+        `search` where it asks for hits or its query reads postings."""
         ts_field = self.config["doc_mapping"]["timestamp_field"]
         tables = [{"ts_us": self.ts_us(raw),
-                   "width": widths or _stored_widths(footers[split_id])}
-                  for raw, (split_id, _, _) in zip(self.raws, self.splits)]
+                   "width": widths or _stored_widths(footers[split_id]),
+                   "split": split}
+                  for raw, (split_id, _, _), split in zip(
+                      self.raws, self.splits,
+                      self.reference_splits(self.device))]
 
         def bytes_of(request: dict) -> dict:
-            if request.get("max_hits", 20) == 0 and request.get("aggs"):
-                return {"aggs": roofline.aggregation_bytes(request, ts_field,
-                                                           tables)}
-            return {}
+            out = {}
+            if request.get("aggs"):
+                out["aggs"] = roofline.aggregation_bytes(request, ts_field,
+                                                         tables)
+            if (request.get("max_hits", 20)
+                    or tables[0]["split"].query_terms(
+                        request.get("query", {"match_all": {}}))):
+                out["search"] = roofline.search_bytes(request, ts_field,
+                                                      tables)
+            return out
         return bytes_of
 
 
@@ -157,7 +184,7 @@ def run_cell(work: dict, seed: int, seconds: float, trace: bool,
     steps["corpus"] = time.perf_counter() - t0 - sum(steps.values())
     node = Node(cell.config, cell.splits, device)
     steps["publish"] = time.perf_counter() - t0 - sum(steps.values())
-    bytes_of = cell.needed_bytes(node.footers)
+    footers = node.footers
     cell.splits = [(sid, None, facts) for sid, _, facts in cell.splits]
     search = program(node) if program is not None else node.search
 
@@ -246,7 +273,15 @@ def run_cell(work: dict, seed: int, seconds: float, trace: bool,
         breakdown = summary["breakdown"]
         device_info = {"busy_s": summary["busy_s"],
                        "window_s": summary["window_s"]}
-        needed = [bytes_of(specs[o.index]["request"]) for o in done]
+
+    # --- the reference's work: the program's state goes first -------------
+    del node, search, window_node
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    bytes_of = cell.needed_bytes(footers)
+    needed = [bytes_of(specs[o.index]["request"]) for o in done]
+    if trace:
         run = SimpleNamespace(
             done=done, latencies_ms=latencies, window_s=summary["window_s"],
             busy_s=summary["busy_s"], phases=phases,
@@ -257,13 +292,8 @@ def run_cell(work: dict, seed: int, seconds: float, trace: bool,
             if value is not None:
                 per_layer[metric["name"]] = value
 
-    # --- correctness: the program's state goes first ----------------------
-    del node, search, window_node
-    gc.collect()
-    if device != "cpu":
-        torch.cuda.empty_cache()
-    weights = [max(bytes_of(specs[o.index]["request"]).values(), default=0)
-               for o in done]
+    # --- correctness --------------------------------------------------------
+    weights = [sum(n.values()) for n in needed]
     tally = judge(cell, [(specs[done[i].index]["request"],
                           check.program_answer(done[i].response))
                          for i in choose_sample(cell, weights)])
@@ -313,10 +343,10 @@ def judge(cell: Cell, items: list) -> dict:
     """Judge `(request, answer)` pairs against the reference, on the
     cell's device, from the raw documents."""
     tally = check.empty_tally()
-    splits = [reference.Split(cell.config, raw, sid, cell.device)
-              for raw, (sid, _, _) in zip(cell.raws, cell.splits)]
+    splits = cell.reference_splits(cell.device)
+    tolerance = cell.config["check"]["limits"].get("score_gap", 0.0)
     for request, got in items:
-        check.judge(got, reference.answer(splits, request), tally)
+        check.judge(got, reference.answer(splits, request), tally, tolerance)
     return tally
 
 

@@ -13,7 +13,7 @@ from quickwit_tpu_torch.models.index_metadata import IndexConfig, IndexMetadata
 from quickwit_tpu_torch.models.split_metadata import SplitMetadata
 from quickwit_tpu_torch.query.es_dsl import es_query_to_ast
 from quickwit_tpu_torch.search import service as service_mod
-from quickwit_tpu_torch.search.models import SearchRequest
+from quickwit_tpu_torch.search.models import SearchRequest, SortField
 from quickwit_tpu_torch.search.root import RootSearcher
 from quickwit_tpu_torch.storage.base import StorageResolver
 from quickwit_tpu_torch.storage.ram import RamStorage
@@ -57,12 +57,20 @@ class Node:
             "node-0": service_mod.LocalSearchClient(self.service)})
 
     def request(self, spec: dict, profile: bool = False) -> SearchRequest:
+        """The port's request for a spec; a spec's `sort_by` (a list of
+        `{"field", "order"}`) becomes its sort fields."""
+        sort = {}
+        if spec.get("sort_by"):
+            sort["sort_fields"] = tuple(
+                SortField(key["field"], key.get("order", "desc"))
+                for key in spec["sort_by"])
         return SearchRequest(
             index_ids=[self.index_id],
             query_ast=es_query_to_ast(spec.get("query", {"match_all": {}})),
             max_hits=spec.get("max_hits", 20), aggs=spec.get("aggs"),
             start_timestamp=spec.get("start_timestamp"),
-            end_timestamp=spec.get("end_timestamp"), profile=profile)
+            end_timestamp=spec.get("end_timestamp"), profile=profile,
+            **sort)
 
     def search(self, spec: dict, profile: bool = False):
         return self.root.search(self.request(spec, profile))

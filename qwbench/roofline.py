@@ -12,6 +12,8 @@ import numpy as np
 
 # NVIDIA H100 SXM data sheet, at its 700 W power limit
 H100_HBM_BYTES_PER_S = 3.35e12
+# a posting as a search reads it: doc id, term frequency, field length
+POSTING_BYTES = 4 + 4 + 4
 
 
 def fields_read(request: dict, timestamp_field: str) -> set[str]:
@@ -33,21 +35,54 @@ def fields_read(request: dict, timestamp_field: str) -> set[str]:
     return out
 
 
+def _in_range(ts: np.ndarray, request: dict) -> int:
+    """How many of a split's sorted timestamps the time bounds select."""
+    lo = request.get("start_timestamp")
+    hi = request.get("end_timestamp")
+    a = 0 if lo is None else int(np.searchsorted(ts, lo, "left"))
+    b = len(ts) if hi is None else int(np.searchsorted(ts, hi, "left"))
+    return max(0, b - a)
+
+
 def aggregation_bytes(request: dict, timestamp_field: str,
                       splits: list[dict]) -> int:
     """Bytes an aggregation-only request needs: over each split, the
     docs its time bounds select times the stored width of each column it
     reads, each counted once. `splits`: per split, `ts_us` (its sorted
     timestamps) and `width` (bytes per doc of each column as stored)."""
-    lo = request.get("start_timestamp")
-    hi = request.get("end_timestamp")
     fields = fields_read(request, timestamp_field)
+    return sum(_in_range(split["ts_us"], request)
+               * sum(split["width"][f] for f in fields) for split in splits)
+
+
+def search_bytes(request: dict, timestamp_field: str,
+                 splits: list[dict]) -> int:
+    """Bytes a request's query and hits need: over each split, for each
+    distinct term its query reads, the term's docs times a posting's
+    bytes; where it asks for hits, the docs its time bounds select times
+    the timestamp column's stored width (unless it aggregates too: then
+    `aggregation_bytes` counts that column) and, where it sorts on a
+    field, the docs it matches times that column's stored width.
+    `splits`: per split, `ts_us`, `width` (as for `aggregation_bytes`)
+    and `split` (the plain reference's view of its raw documents, which
+    counts the docs)."""
+    query = request.get("query", {"match_all": {}})
+    hits = bool(request.get("max_hits", 20))
+    sort = (request.get("sort_by") or [{"field": "_score"}])[0]["field"]
+    bounded = (hits and not request.get("aggs")
+               and (request.get("start_timestamp") is not None
+                    or request.get("end_timestamp") is not None))
     total = 0
     for split in splits:
-        ts = split["ts_us"]
-        a = 0 if lo is None else int(np.searchsorted(ts, lo, "left"))
-        b = len(ts) if hi is None else int(np.searchsorted(ts, hi, "left"))
-        total += max(0, b - a) * sum(split["width"][f] for f in fields)
+        ref = split["split"]
+        for field, term in ref.query_terms(query):
+            total += ref.doc_freq(field, term) * POSTING_BYTES
+        if bounded:
+            total += (_in_range(split["ts_us"], request)
+                      * split["width"][timestamp_field])
+        if hits and sort not in ("_score", "_doc"):
+            total += (int(ref.request_mask(request).sum())
+                      * split["width"][sort])
     return total
 
 

@@ -12,7 +12,8 @@ import time
 import pytest
 
 from qwbench import control, harness
-from qwbench.tests.test_qwbench_reference import small
+from qwbench.tests import logs_corpus
+from qwbench.tests.test_qwbench_reference import logs_work, small
 from quickwit_tpu_torch.search import service as service_mod
 
 
@@ -21,6 +22,24 @@ def test_control_is_not_correct():
     for seed in (11, 2**31 + 12, 13):
         out = control.readings(work, seed, 2.0, "cpu", config, mix)
         assert out["correct"] is False, out
+
+
+def test_a_float16_control_reads_scores_far_wider_than_float32(monkeypatch):
+    """The control answers searches too, its scores in `control_dtype`:
+    in float16 its widest score gap is 100 times float32's or more, so a
+    deployment can set its limit between the two."""
+    logs_corpus.registered(monkeypatch)
+    for seed in (21, 2**31 + 22, 23):
+        gaps = {}
+        for dtype in ("float16", "float32"):
+            config = logs_corpus.config()
+            config["check"]["control_dtype"] = dtype
+            out = control.readings(logs_work(), seed, 3.0, "cpu", config,
+                                   logs_corpus.MIX)
+            gaps[dtype] = out["numbers"]["score_gap"]
+            if dtype == "float16":
+                assert out["correct"] is False, out
+        assert gaps["float16"] >= 100 * gaps["float32"] > 0, gaps
 
 
 def _run(name, monkeypatch=None, program=None, patch=None):

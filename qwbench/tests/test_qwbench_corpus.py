@@ -11,7 +11,10 @@ import torch
 
 from qwbench import cells
 from qwbench.corpus import common, otel_traces
-from quickwit_tpu_torch.index.format import SplitFooter, read_footer
+from qwbench.tests import logs_corpus
+from quickwit_tpu_torch.index.format import (
+    SplitFileBuilder, SplitFooter, read_footer,
+)
 from quickwit_tpu_torch.index.writer import SplitWriter
 from quickwit_tpu_torch.models.doc_mapper import DocMapper
 
@@ -51,14 +54,17 @@ def otel_writer_split(config: dict, raw: dict) -> bytes:
                            raw["service"].tolist())])
 
 
-def assert_same_split(ours: bytes, theirs: bytes) -> None:
-    """Every array but the doc store's (ours is empty: dashboards fetch no
-    documents), and every field's metadata."""
+STORE = {"store.data", "store.block_offsets", "store.block_first_doc"}
+
+
+def assert_same_split(ours: bytes, theirs: bytes,
+                      store: bool = False) -> None:
+    """Every array, the doc store's only with `store` (otel's is empty:
+    dashboards fetch no documents), and every field's metadata."""
     f_ours, a_ours = arrays_of(ours)
     f_theirs, a_theirs = arrays_of(theirs)
     assert set(a_ours) == set(a_theirs)
-    for name in sorted(set(a_theirs) - {"store.data", "store.block_offsets",
-                                        "store.block_first_doc"}):
+    for name in sorted(set(a_theirs) - (set() if store else STORE)):
         assert a_ours[name].dtype == a_theirs[name].dtype, name
         np.testing.assert_array_equal(a_ours[name], a_theirs[name],
                                       err_msg=name)
@@ -74,6 +80,37 @@ def test_otel_split_equals_the_writers():
     raw = otel_traces.draw(config, 2**33 + 5, "cpu", split=1)
     ours, _ = otel_traces.build(config, raw)
     assert_same_split(ours, otel_writer_split(config, raw))
+
+
+def logs_split_pair(docs: int, seed: int, device="cpu"):
+    """A small logs split through the corpus helpers and through
+    `SplitWriter`, from the same raw documents."""
+    config = logs_corpus.config()
+    config["docs_per_split"] = docs
+    raw = logs_corpus.draw(config, seed, device, split=2)
+    ours, _ = logs_corpus.build(config, raw)
+    cpu = {k: v.cpu() for k, v in raw.items()}
+    theirs = writer_split(config, logs_corpus.documents(config, cpu))
+    return ours, theirs
+
+
+@pytest.mark.parametrize("docs", [700, 2500])
+def test_text_field_and_doc_store_equal_the_writers(docs):
+    """The body's postings with exact lengths, the u64 field's postings
+    and the doc store, array by array, over one or several store blocks."""
+    ours, theirs = logs_split_pair(docs, 2**33 + 17)
+    assert_same_split(ours, theirs, store=True)
+    _, arrays = arrays_of(ours)
+    assert len(arrays["store.block_offsets"]) > (2 if docs > 2000 else 1)
+    assert arrays["inv.body.fieldnorm"].max() > 3
+
+
+def test_a_word_that_is_not_its_own_token_is_refused():
+    from quickwit_tpu_torch.models.doc_mapper import FieldMapping, FieldType
+    with pytest.raises(ValueError, match="tokenize"):
+        common.text_field(SplitFileBuilder(), FieldMapping(
+            "body", FieldType.TEXT), ["ok", "Not-one"],
+            torch.tensor([0, 2]), torch.tensor([0, 1]), 128)
 
 
 def test_otel_columns_keep_the_index_types():
@@ -154,3 +191,9 @@ def test_otel_split_on_the_card_equals_the_writers(cuda):
     ours, _ = otel_traces.build(config, raw)
     cpu_raw = {k: v.cpu() for k, v in raw.items()}
     assert_same_split(ours, otel_writer_split(config, cpu_raw))
+
+
+@pytest.mark.gpu
+def test_logs_split_on_the_card_equals_the_writers(cuda):
+    ours, theirs = logs_split_pair(2500, 4243, cuda)
+    assert_same_split(ours, theirs, store=True)

@@ -11,11 +11,14 @@ import sys
 import time
 from pathlib import Path
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
-from qwbench import cells, check, harness, run, traffic
+from qwbench import cells, check, harness, roofline, run, traffic
 from qwbench.node import Node
+from qwbench.tests import logs_corpus
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = ["otel-dashboard-open"]
@@ -193,3 +196,298 @@ def test_loading_the_benchmark_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+# --- the freeze of the existing cell ----------------------------------------
+
+FROZEN = Path(__file__).with_name("frozen_otel_dashboard_open.json")
+
+
+def test_otel_dashboard_open_reads_as_it_did():
+    """`otel-dashboard-open`'s window schedule, the bytes each request
+    needs and the reference's answers, for one seed, equal what the
+    harness gave before it could judge searches (values taken from that
+    commit: `frozen_otel_dashboard_open.json`)."""
+    from qwbench.reference import search as reference
+    frozen = json.loads(FROZEN.read_text())
+    work = cells.cell("otel-dashboard-open")
+    config = cells.load_config(work["config"])
+    mix = cells.load_traffic(work["traffic"])
+    specs, offsets = harness.Cell(work, frozen["seed"], "cpu", config,
+                                  mix).schedule(frozen["seconds"], "window")
+    assert specs == frozen["specs"]
+    assert [float(x) for x in offsets] == frozen["offsets"]
+    config = dict(config, docs_per_split=frozen["docs_per_split"],
+                  splits=frozen["splits"])
+    cell = harness.Cell(work, frozen["seed"], "cpu", config, mix)
+    cell.build_corpus()
+    bytes_of = cell.needed_bytes(Node(cell.config, cell.splits,
+                                      "cpu").footers)
+    assert [bytes_of(s["request"]) for s in specs] == frozen["needed"]
+    splits = cell.reference_splits("cpu")
+    answers = [reference.answer(splits, s["request"])
+               for s in specs[:len(frozen["answers"])]]
+    assert json.loads(json.dumps(answers)) == frozen["answers"]
+
+
+# --- searches: hits, full-text queries and fetched documents ----------------
+
+S = logs_corpus.CONFIG["start_ts"] * 1_000_000
+MIN = 60 * 1_000_000
+SEARCHES = {
+    "match_or_top10": {"query": {"match": {"body": "t0 t5 t77"}},
+                       "max_hits": 10},
+    "match_and_top100": {"query": {"match": {"body": {
+        "query": "t1 t2", "operator": "and"}}}, "max_hits": 100},
+    "bool_every_occur_in_time": {
+        "query": {"bool": {
+            "must": [{"match": {"body": "t3"}}],
+            "should": [{"match": {"body": "t10 t11"}}],
+            "filter": [{"range": {"tenant_id": {"gte": 2}}}],
+            "must_not": [{"term": {"severity_text": "DEBUG"}}]}},
+        "max_hits": 10, "start_timestamp": S + 10 * MIN,
+        "end_timestamp": S + 40 * MIN},
+    "bool_should_only_top100": {"query": {"bool": {"should": [
+        {"match": {"body": "t4"}}, {"match": {"body": "t40"}}]}},
+        "max_hits": 100},
+    "term_u64_top10": {"query": {"term": {"tenant_id": 3}},
+                       "max_hits": 10},
+    "terms_agg_u64": {"query": {"match": {"body": "t2"}}, "max_hits": 0,
+                      "aggs": {"by_tenant": {"terms": {
+                          "field": "tenant_id", "size": 5}}}},
+    "newest_first_top100_in_time": {
+        "query": {"match": {"body": "t6 t8"}}, "max_hits": 100,
+        "sort_by": [{"field": "timestamp", "order": "desc"}],
+        "start_timestamp": S + MIN, "end_timestamp": S + 30 * MIN},
+    "newest_first_of_tenant_top10": {
+        "query": {"bool": {"filter": [{"term": {"tenant_id": 3}}]}},
+        "max_hits": 10,
+        "sort_by": [{"field": "timestamp", "order": "desc"}]},
+    "hits_and_aggs_top100": {
+        "query": {"match": {"body": "t0 t1"}}, "max_hits": 100,
+        "aggs": {"sev": {"terms": {"field": "severity_text"}},
+                 "tenants": {"terms": {"field": "tenant_id"}}}},
+}
+
+
+def logs_work(bench: dict | None = None) -> dict:
+    """The search cell as a later `BENCHMARK.json` entry would name it."""
+    bench = json.loads(json.dumps(bench or cells.benchmark()))
+    bench["workloads"].append({
+        "name": "test-logs-search", "config": logs_corpus.CONFIG["name"],
+        "traffic": "test-logs-explorer", "chips": 1,
+        "why": "full-text searches with hits over 3 small splits"})
+    return cells.cell("test-logs-search", bench)
+
+
+@pytest.fixture(scope="module")
+def logs():
+    """The search deployment's corpus, its node and the reference's view,
+    on the CPU."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        logs_corpus.registered(monkeypatch)
+        cell = harness.Cell(logs_work(), 2**31 + 99, "cpu",
+                            logs_corpus.config(), logs_corpus.MIX)
+        cell.build_corpus()
+        node = Node(cell.config, cell.splits, "cpu")
+        yield SimpleNamespace(cell=cell, node=node,
+                              splits=cell.reference_splits("cpu"))
+
+
+def search_tally(logs, request, got) -> dict:
+    from qwbench.reference import search as reference
+    tally = check.empty_tally()
+    limits = logs.cell.config["check"]["limits"]
+    check.judge(got, reference.answer(logs.splits, request), tally,
+                limits["score_gap"])
+    return tally
+
+
+@pytest.mark.parametrize("name", sorted(SEARCHES))
+def test_reference_agrees_with_the_cpu_path_on_searches(logs, name):
+    request = SEARCHES[name]
+    got = check.program_answer(logs.node.search(request))
+    tally = search_tally(logs, request, got)
+    limits = logs.cell.config["check"]["limits"]
+    assert tally["count_wrong"] == 0, tally
+    assert tally["score_gap"] <= limits["score_gap"], tally
+    assert got["num_hits"] > len(got["hits"]) > 0 or not request["max_hits"]
+    assert all(h["doc"]["body"] for h in got["hits"])
+    if request.get("sort_by") or not request["max_hits"]:
+        assert tally["score_gap"] == 0.0
+    else:
+        assert tally["score_gap"] > 0.0      # the port scores in float32
+
+
+def _deep_hit(logs, request) -> dict:
+    """A hit of the request far below its k-th best score."""
+    from qwbench.reference import search as reference
+    return reference.answer(logs.splits, dict(request, max_hits=2000))[
+        "hits"][-1]
+
+
+def _no_match(logs, request) -> dict:
+    from qwbench.reference import search as reference
+    want = reference.answer(logs.splits, request)
+    doc = next(d for d in range(logs.splits[0].n)
+               if want["lookup"](logs.splits[0].split_id, d) is None)
+    return {"split_id": logs.splits[0].split_id, "doc_id": doc,
+            "score": 1.0, "doc": {}}
+
+
+def _swap(hits: list, differ) -> None:
+    """Swap the first two consecutive hits that `differ`."""
+    i = next(i for i in range(len(hits) - 1) if differ(hits[i], hits[i + 1]))
+    hits[i], hits[i + 1] = hits[i + 1], hits[i]
+
+
+PLANTED = {
+    # name: (request, fault, count_wrong it adds, whether score_gap fails)
+    "swapped_hit": ("match_or_top10", lambda logs, got, r: _swap(
+        got["hits"], lambda a, b: a["score"] > b["score"] * 1.001), 1, False),
+    "dropped_hit": ("match_or_top10", lambda logs, got, r: got["hits"].pop(
+        4), 1, False),
+    "hit_outside_the_top_k": ("match_or_top10", lambda logs, got, r:
+                              got["hits"].__setitem__(
+                                  -1, _deep_hit(logs, r)), 1, False),
+    "hit_that_does_not_match": ("match_and_top100", lambda logs, got, r:
+                                got["hits"].__setitem__(
+                                    -1, _no_match(logs, r)), 1, False),
+    "duplicate_hit": ("match_and_top100", lambda logs, got, r:
+                      got["hits"].__setitem__(-1, dict(got["hits"][0])),
+                      1, False),
+    "score_off_by_1e-3": ("bool_every_occur_in_time", lambda logs, got, r:
+                          got["hits"][2].__setitem__(
+                              "score", got["hits"][2]["score"] * 1.001),
+                          0, True),
+    "wrong_document": ("newest_first_of_tenant_top10", lambda logs, got, r:
+                       got["hits"][1].__setitem__("doc", dict(
+                           got["hits"][1]["doc"], severity_text="ERROR",
+                           body=got["hits"][1]["doc"]["body"] + " t1")),
+                       1, False),
+    "wrong_num_hits": ("term_u64_top10", lambda logs, got, r:
+                       got.__setitem__("num_hits", got["num_hits"] - 1),
+                       1, False),
+    "field_sort_swapped": ("newest_first_top100_in_time",
+                           lambda logs, got, r: _swap(got["hits"], lambda a, b:
+                                                      a["doc"]["timestamp"]
+                                                      != b["doc"]["timestamp"]),
+                           2, False),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED))
+def test_a_planted_search_fault_is_caught(logs, fault):
+    name, plant, wrong, gap = PLANTED[fault]
+    request = SEARCHES[name]
+    got = check.program_answer(logs.node.search(request))
+    plant(logs, got, request)
+    tally = search_tally(logs, request, got)
+    ok, _ = check.verdict(tally, logs.cell.config["check"]["limits"])
+    assert not ok
+    assert tally["count_wrong"] == wrong, tally
+    limit = logs.cell.config["check"]["limits"]["score_gap"]
+    assert (tally["score_gap"] > limit) is gap, tally
+
+
+def test_a_search_cell_runs_end_to_end_on_the_cpu(monkeypatch):
+    """A deployment, corpus and mix defined in test files alone, through
+    `run_cell`: drawn query terms, hits by score and newest first, the
+    fetched documents judged."""
+    logs_corpus.registered(monkeypatch)
+    result = harness.run_cell(logs_work(), 2**32 + 77, 3.0, False, "cpu",
+                              time.perf_counter(), logs_corpus.config(),
+                              logs_corpus.MIX)
+    assert list(result["checks"]) == ["count_wrong", "agg_gap", "score_gap",
+                                      "failed"]
+    assert result["correct"] is True, result["checks"]
+    assert result["attempted"] >= 20
+    assert 0 < result["checks"]["score_gap"]["value"] <= 1e-5
+
+
+def test_query_terms_are_drawn_at_fixed_quantiles(monkeypatch):
+    logs_corpus.registered(monkeypatch)
+    config = logs_corpus.config()
+    law = logs_corpus.MIX["kinds"][0]["draws"]["q"]
+    draws = [[v["text"] for v in traffic._law_values(
+        law, 200, config, traffic._rng(seed, "t"))] for seed in (5, 5, 6)]
+    assert draws[0] == draws[1] != draws[2]
+    for texts in draws:
+        terms = [text.split() for text in texts]
+        assert all(len(set(t)) == len(t) and 1 <= len(t) <= 3
+                   for t in terms)
+        assert sorted(map(len, terms)) == sorted(
+            map(len, [text.split() for text in draws[0]]))
+    counts = {}
+    for text in draws[0]:
+        for word in text.split():
+            counts[word] = counts.get(word, 0) + 1
+    top = [logs_corpus.term_name(config, "body", r) for r in range(3)]
+    assert [counts[w] for w in top] == sorted(
+        (counts[w] for w in top), reverse=True)
+    assert counts[top[0]] > 5 * counts.get(
+        logs_corpus.term_name(config, "body", 150), 1)
+
+
+def test_needed_bytes_of_a_search(logs):
+    """Postings of each distinct term, the timestamps in the range, and
+    the sort column of the matched docs."""
+    bytes_of = logs.cell.needed_bytes(logs.node.footers)
+    assert bytes_of(SEARCHES["match_or_top10"]) == {"search": 12 * sum(
+        split.doc_freq("body", w) for split in logs.splits
+        for w in ("t0", "t5", "t77"))}
+    request = SEARCHES["newest_first_top100_in_time"]
+    want = 0
+    for split in logs.splits:
+        width = harness._stored_widths(logs.node.footers[split.split_id])[
+            "timestamp"]
+        in_range = split.request_mask({k: v for k, v in request.items()
+                                       if k != "query"})
+        want += (12 * (split.doc_freq("body", "t6")
+                       + split.doc_freq("body", "t8"))
+                 + width * int(in_range.sum())
+                 + width * int(split.request_mask(request).sum()))
+    assert bytes_of(request) == {"search": want}
+
+
+def test_needed_bytes_of_a_request_that_searches_and_aggregates(logs):
+    """Hits with aggregations, and aggregations under a full-text query:
+    `search` has the query's postings, `aggs` the aggregated columns,
+    each column counted once."""
+    bytes_of = logs.cell.needed_bytes(logs.node.footers)
+    ts_field = logs.cell.config["doc_mapping"]["timestamp_field"]
+    tables = [{"ts_us": logs.cell.ts_us(raw),
+               "width": harness._stored_widths(logs.node.footers[sid])}
+              for raw, (sid, _, _) in zip(logs.cell.raws, logs.cell.splits)]
+    for name, words in (("hits_and_aggs_top100", ("t0", "t1")),
+                        ("terms_agg_u64", ("t2",))):
+        request = SEARCHES[name]
+        postings = 12 * sum(split.doc_freq("body", w)
+                            for split in logs.splits for w in words)
+        assert bytes_of(request) == {
+            "aggs": roofline.aggregation_bytes(request, ts_field, tables),
+            "search": postings}
+        assert bytes_of(request)["aggs"] > 0 and postings > 0
+    # bounded in time, the timestamps go to `aggs` alone
+    request = dict(SEARCHES["hits_and_aggs_top100"],
+                   start_timestamp=S + MIN, end_timestamp=S + 30 * MIN)
+    got = bytes_of(request)
+    assert got["search"] == 12 * sum(split.doc_freq("body", w)
+                                     for split in logs.splits
+                                     for w in ("t0", "t1"))
+    assert got["aggs"] == roofline.aggregation_bytes(request, ts_field,
+                                                     tables)
+    assert ts_field in roofline.fields_read(request, ts_field)
+
+
+@pytest.mark.parametrize("field,terms", [
+    ("body", ["t0", "t1", "t77", "t499", "nosuchword"]),
+    ("tenant_id", [0, 3, 10**9]),
+    ("severity_text", ["DEBUG", "ERROR", "NOSUCH"])])
+def test_doc_freq_counts_the_docs_that_hold_the_term(logs, field, terms):
+    for split in logs.splits:
+        for term in terms:
+            query = ({"match": {field: term}} if field == "body"
+                     else {"term": {field: term}})
+            assert split.doc_freq(field, term) == int(
+                split.evaluate(query).sum())

@@ -20,7 +20,11 @@ A Poisson mix:
                             "start_timestamp": "$<var>.from_us", ...}}]}
 
 Laws: `time_range` (`lengths_s`, `align_s`: a range on a grid inside the
-corpus's span).
+corpus's span, `{"from_us", "to_us"}`); `query_terms` (`field`, `count`:
+the least and the most terms a query, `zipf_s`, `top`: distinct terms
+drawn under Zipf(`zipf_s`) from the field's `top` most frequent, named by
+the corpus's `term_name(config, field, rank)`, `{"text": "w1 w2 ..."}`
+for a `match` query).
 
 A refresh mix, dashboards on a fixed auto-refresh interval, each refresh
 sending all of the dashboard's panels at once over one shared range that
@@ -47,6 +51,7 @@ from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 
+from . import cells
 from .corpus.common import sub_seed
 
 
@@ -78,9 +83,40 @@ def _law_values(law: dict, m: int, config: dict, rng) -> list:
             lo_s = start + int(at * slots) * law["align_s"]
             values.append({"from_us": lo_s * 1_000_000,
                            "to_us": (lo_s + length) * 1_000_000})
+    elif kind == "query_terms":
+        values = _query_terms(law, m, config, q, rng)
     else:
         raise ValueError(f"unknown law {kind!r}")
     return [values[i] for i in rng.permutation(m)]
+
+
+def _query_terms(law: dict, m: int, config: dict, q: np.ndarray,
+                 rng) -> list[dict]:
+    """m queries' texts: each query's term count at fixed quantiles of
+    [least, most], the terms' ranks at fixed quantiles of the Zipf law
+    over the `top` ranks, dealt to the queries in the seed's order; a rank
+    that a query already holds moves to the next one it does not."""
+    least, most = law["count"]
+    counts = least + np.floor(q * (most - least + 1)).astype(int)
+    top = law["top"]
+    cdf = np.cumsum((np.arange(top) + 1.0) ** -law["zipf_s"])
+    n = int(counts.sum())
+    ranks = np.minimum(np.searchsorted(cdf / cdf[-1],
+                                       (np.arange(n) + 0.5) / n), top - 1)
+    ranks = ranks[rng.permutation(n)]
+    corpus = cells.corpus_module(config)
+    values, at = [], 0
+    for count in counts:
+        held = []
+        for rank in ranks[at:at + count]:
+            rank = int(rank)
+            while rank in held:
+                rank = (rank + 1) % top
+            held.append(rank)
+        at += count
+        values.append({"text": " ".join(
+            corpus.term_name(config, law["field"], r) for r in held)})
+    return values
 
 
 def _substitute(node, drawn: dict):
