@@ -18,7 +18,9 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 
-from ..observability.profile import current_profile
+from ..observability.profile import (
+    STORE_BLOCKS_READ, current_profile, profile_add,
+)
 from ..storage.base import Storage
 from ..storage.cache import ByteRangeCache
 from .format import DEFAULT_FOOTER_HINT, ArrayMeta, SplitFooter, read_footer
@@ -279,7 +281,8 @@ class SplitReader:
     # --- doc store ---------------------------------------------------------
     def fetch_docs(self, doc_ids: list[int]) -> list[dict[str, Any]]:
         """Random-access doc fetch (reference: `fetch_docs.rs` over the doc
-        store); decompresses each needed block once."""
+        store); decompresses each needed block once, and counts the blocks
+        as `store_blocks_read` on the ambient query profile."""
         block_first = self.array("store.block_first_doc")
         block_offsets = self.array("store.block_offsets")
         by_block: dict[int, list[int]] = {}
@@ -288,6 +291,7 @@ class SplitReader:
                 raise IndexError(f"doc id {doc_id} out of range")
             block = bisect.bisect_right(block_first, doc_id) - 1
             by_block.setdefault(block, []).append(doc_id)
+        profile_add(STORE_BLOCKS_READ, len(by_block))
         docs_by_id: dict[int, dict[str, Any]] = {}
         for block, ids in by_block.items():
             raw = self.array_slice("store.data", int(block_offsets[block]),

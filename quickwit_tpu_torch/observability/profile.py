@@ -78,6 +78,15 @@ DEVICE_DISPATCHES = "device_dispatches"
 # them that the one-pass aggregation kernel computed (search/executor.py)
 AGG_EVALS = "agg_evals"
 AGG_KERNEL_EVALS = "agg_kernel_evals"
+# the split programs that selected hits, and those of them whose top-k the
+# fused CUDA kernel (`score_topk` or `score_topk_lanes`) computed
+# (search/executor.py)
+TOPK_EVALS = "topk_evals"
+TOPK_KERNEL_EVALS = "topk_kernel_evals"
+# the documents the root's fetch returned, and the doc-store blocks it
+# decompressed (search/root.py, index/reader.py)
+DOCS_FETCHED = "docs_fetched"
+STORE_BLOCKS_READ = "store_blocks_read"
 
 
 class _NullPhase:

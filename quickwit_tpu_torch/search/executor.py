@@ -30,7 +30,9 @@ alone and returns its np.packbits-ordered bitmask (the mask-fill program).
 
 The JAX package's `guided_topk` (an f32 screen that re-dispatches through
 `exact_topk` when it cannot certify its answer) is not used: this program
-runs `exact_topk`, and `topk_safe` is always 1.
+runs `exact_topk`, and `topk_safe` is always 1. A program that selects
+hits counts `topk_evals` on the ambient query profile, and
+`topk_kernel_evals` where the fused CUDA kernel computed its top-k.
 
 Aggregations (`_eval_aggs`): bucket counts and bucket metrics over
 terms, multivalued terms, histogram and date_histogram at any nesting
@@ -61,8 +63,8 @@ from ..index.format import ZONEMAP_BLOCK
 from ..observability import flight
 from ..observability.metrics import SEARCH_KERNEL_LAUNCHES_TOTAL
 from ..observability.profile import (
-    AGG_EVALS, AGG_KERNEL_EVALS, PHASE_EXECUTE, note_dispatch, profile_add,
-    profiled_phase)
+    AGG_EVALS, AGG_KERNEL_EVALS, PHASE_EXECUTE, TOPK_EVALS, TOPK_KERNEL_EVALS,
+    note_dispatch, profile_add, profiled_phase)
 from ..ops import aggs as agg_ops
 from ..ops.kernels import aggs as agg_kernel
 from ..ops import masks as mask_ops
@@ -788,7 +790,12 @@ def _build_posting_space(plan: LoweredPlan, k: int):
                     torch.zeros(0, dtype=torch.float32, device=dev),
                     count, one, tuple(agg_out))
         kk = min(k, max(num_postings, width or 0))
+        profile_add(TOPK_EVALS)
         if fused_step:
+            # on CUDA tensors `score_topk` and `score_topk_lanes` launch
+            # the kernel; on the CPU they run their plain versions
+            if dev.type == "cuda":
+                profile_add(TOPK_KERNEL_EVALS)
             # fused scoring + top-k: the [P] scores never materialize; hit
             # scores come straight from the kernel's winners
             if fused is None:
@@ -1035,6 +1042,7 @@ def _build(plan: LoweredPlan, k: int, device):
                     torch.zeros(0, dtype=torch.int32, device=device),
                     torch.zeros(0, dtype=torch.float32, device=device),
                     count, one, tuple(agg_out))
+        profile_add(TOPK_EVALS)
         # only "doc" sorts read the doc key (XLA drops it unused; torch
         # would run it)
         doc_key = (_global_doc_ids(plan, scalars, padded, device)

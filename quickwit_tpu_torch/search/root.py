@@ -43,8 +43,8 @@ from ..observability.metrics import (
     SEARCH_PROFILED_QUERIES_TOTAL, SEARCH_TIMED_OUT_TOTAL,
 )
 from ..observability.profile import (
-    PHASE_FETCH_DOCS, PHASE_ROOT_MERGE, QueryProfile, current_profile,
-    profile_scope, profiled_phase,
+    DOCS_FETCHED, PHASE_FETCH_DOCS, PHASE_ROOT_MERGE, QueryProfile,
+    current_profile, profile_add, profile_scope, profiled_phase,
 )
 from ..observability import flight
 from ..observability.slo import SLO_TRACKER
@@ -807,6 +807,7 @@ class RootSearcher:
                     logger.warning("fetch_docs on %s failed: %s", node_id, exc)
             if docs is None:
                 continue
+            profile_add(DOCS_FETCHED, len(docs))
             for hit, doc in zip(hits, docs):
                 docs_by_address[(split_id, hit.doc_id)] = doc
         out: list[Hit] = []

@@ -257,7 +257,8 @@ def assert_close(want, got, path="response"):
 # programs evaluated and of those its aggregation kernel computed.
 UNCOMPARED_COUNTERS = ("compile_cache_hits", "compile_cache_misses",
                        "cpu_micros", "device_dispatches", "agg_evals",
-                       "agg_kernel_evals")
+                       "agg_kernel_evals", "topk_evals", "topk_kernel_evals",
+                       "docs_fetched", "store_blocks_read")
 
 
 def profile_shape(profile):
